@@ -1,0 +1,323 @@
+// Fused flat scan with bucketed best-two selection (bf16 and int8).
+//
+// Replaces the TPU kernels hnsw_tpu/ops/pallas_scan.py::pallas_bucket_topk
+// (_make_kernel_bucketed) and ::pallas_int8_bucket_topk
+// (_make_kernel_int8_bucketed).
+//
+// Contract. For every query q and corpus row r < n the kernel forms the dot
+// product on the tensor cores (bf16 x bf16 -> f32, or s8 x s8 -> s32 then
+// f32) and a key that orders rows like the metric does for that query:
+//   bf16: cosine -dot*vkey (vkey = 1/|v|), euclidean vkey - 2*dot
+//         (vkey = |v|^2), dot -dot
+//   int8: cosine -dot*vkey (vkey = vscale/|v|), euclidean
+//         vkey - 2*qscale*vscale*dot (vkey = |v|^2), dot -dot*vkey
+//         (vkey = vscale)
+// Rows >= n get the key BIG. Bucket c holds the rows r with r mod 128 == c;
+// for each (query, bucket) the kernel keeps the best two (key, row) pairs
+// and writes them as a bank [B, 256]: best keys in [:, :128], second keys in
+// [:, 128:]. The caller takes the top-k of the bank.
+//
+// Bound on the H100: tensor-core operations, 2*B*N_pad*D of them, plus a
+// per-element epilogue (the key and the best-two update). Design, kept simple
+// for this first version: a block owns 64 queries and walks the 128-row
+// corpus tiles of one split of the corpus. A 128-row tile holds exactly one
+// row of each bucket, so the running best two of each (query, bucket) pair
+// are updated by one insert per tile; they live in registers (32 pairs per
+// thread). Eight warps compute the 64 x 128 product tile with mma.sync
+// (m16n8k16 bf16, m16n8k32 s8) from 128-byte K chunks staged in shared
+// memory, the next chunk's global loads in flight during the current
+// chunk's products. The TPU's sequential corpus-tile axis becomes the loop
+// inside the block plus S splits across blocks; each split writes a partial
+// bank and bucket_merge folds the splits in order with the reference's
+// _merge_pair2 rule, so an earlier row wins a tie as it does there.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;          // queries per block
+constexpr int BN = 128;         // corpus rows per tile == buckets
+constexpr int KB = 128;         // bytes of K per staged chunk
+constexpr int LDS = KB + 16;    // padded smem row (36 words: conflict-free fragments)
+constexpr int LDC = BN + 4;     // padded f32 product-tile row
+constexpr int kThreads = 256;
+constexpr int kPairs = BM * BN / kThreads;   // (query, bucket) pairs per thread
+constexpr float BIG = 1e30f;
+constexpr int kSmem = (BM * LDC * 4 > (BM + BN) * LDS) ? BM * LDC * 4 : (BM + BN) * LDS;
+
+enum { COSINE = 0, EUCLIDEAN = 1, DOT = 2 };
+
+template <bool INT8>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]);
+
+template <>
+__device__ __forceinline__ void mma<false>(float (&d)[4], const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// s8 products accumulate exactly in s32; the accumulator registers carry the
+// s32 bit patterns and are converted to f32 once per tile.
+template <>
+__device__ __forceinline__ void mma<true>(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+    int* di = reinterpret_cast<int*>(d);
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(di[0]), "+r"(di[1]), "+r"(di[2]), "+r"(di[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The reference's _merge_pair2 for one incoming candidate (x, row) whose row
+// is later than both kept rows: a tie with the best keeps the earlier best.
+__device__ __forceinline__ void insert2(float x, int row, float& d1, int& r1, float& d2, int& r2) {
+    if (x < d1) {
+        d2 = d1; r2 = r1; d1 = x; r1 = row;
+    } else if (x <= d2) {
+        d2 = x; r2 = row;
+    }
+}
+
+// _merge_pair2: smallest two of {a1, a2, b1, b2} (a1 <= a2, b1 <= b2), with
+// a (the earlier rows) winning ties against b on the first comparison.
+__device__ __forceinline__ void merge2(float& a1, int& ai1, float& a2, int& ai2,
+                                       float b1, int bi1, float b2, int bi2) {
+    const bool a_first = a1 <= b1;
+    const float n1 = a_first ? a1 : b1;
+    const int ni1 = a_first ? ai1 : bi1;
+    const float mid = a_first ? b1 : a1;
+    const int mi = a_first ? bi1 : ai1;
+    const float o2 = fminf(a2, b2);
+    const int oi2 = a2 <= b2 ? ai2 : bi2;
+    a1 = n1; ai1 = ni1;
+    a2 = mid <= o2 ? mid : o2;
+    ai2 = mid <= o2 ? mi : oi2;
+}
+
+template <bool INT8>
+__global__ void __launch_bounds__(kThreads, 1)
+bucket_bank_kernel(const uint8_t* __restrict__ vectors, const float* __restrict__ vkey,
+                   const float* __restrict__ vscale, const uint8_t* __restrict__ queries,
+                   const float* __restrict__ qscale, float* __restrict__ part_d,
+                   int* __restrict__ part_r, int B, int N_pad, int D, int n, int metric,
+                   int splits) {
+    __shared__ __align__(16) uint8_t smem[kSmem];
+    uint8_t* Qs = smem;                 // [BM][LDS] bytes of the query chunk
+    uint8_t* Vs = smem + BM * LDS;      // [BN][LDS] bytes of the corpus chunk
+    float* Cs = reinterpret_cast<float*>(smem);   // [BM][LDC], aliases Qs/Vs
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int warp_m = warp >> 2, warp_n = warp & 3;   // 2 x 4 warps of 32 x 32
+    const int q0 = blockIdx.x * BM;
+    const int split = blockIdx.y;
+    const int row_bytes = INT8 ? D : 2 * D;
+    const int nk = row_bytes / KB;
+    const int ntiles_all = N_pad / BN;
+    const int t_begin = (int)((long long)split * ntiles_all / splits);
+    const int t_end = (int)((long long)(split + 1) * ntiles_all / splits);
+    const long long total = (long long)(t_end - t_begin) * nk;
+
+    // epilogue ownership: bucket c, queries qh, qh+2, ..., qh+62
+    const int c = tid & (BN - 1), qh = tid >> 7;
+    float d1[kPairs], d2[kPairs];
+    int r1[kPairs], r2[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) { d1[i] = BIG; d2[i] = BIG; r1[i] = -1; r2[i] = -1; }
+
+    float acc[2][4][4];
+    uint4 qreg[2], vreg[4];
+
+    auto prefetch = [&](long long it) {
+        const int tile = t_begin + (int)(it / nk), kc = (int)(it % nk);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int idx = tid + i * kThreads, r = idx >> 3, col = (idx & 7) * 16;
+            qreg[i] = (q0 + r < B)
+                ? __ldg(reinterpret_cast<const uint4*>(
+                      queries + (long long)(q0 + r) * row_bytes + kc * KB + col))
+                : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int idx = tid + i * kThreads, r = idx >> 3, col = (idx & 7) * 16;
+            vreg[i] = __ldg(reinterpret_cast<const uint4*>(
+                vectors + (long long)(tile * BN + r) * row_bytes + kc * KB + col));
+        }
+    };
+
+    if (total > 0) prefetch(0);
+    for (long long it = 0; it < total; ++it) {
+        const int tile = t_begin + (int)(it / nk), kc = (int)(it % nk);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int idx = tid + i * kThreads;
+            *reinterpret_cast<uint4*>(Qs + (idx >> 3) * LDS + (idx & 7) * 16) = qreg[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int idx = tid + i * kThreads;
+            *reinterpret_cast<uint4*>(Vs + (idx >> 3) * LDS + (idx & 7) * 16) = vreg[i];
+        }
+        __syncthreads();
+        if (it + 1 < total) prefetch(it + 1);
+        if (kc == 0) {
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;   // also s32 zero
+        }
+        // four 32-byte k-steps per chunk: k16 for bf16, k32 for s8 (same bytes)
+#pragma unroll
+        for (int ks = 0; ks < KB; ks += 32) {
+            uint32_t a[2][4], b[4][2];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+                const uint8_t* p = Qs + (warp_m * 32 + mi * 16 + g) * LDS + ks + t4 * 4;
+                a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
+                a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+                a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+                a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+            }
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+                const uint8_t* p = Vs + (warp_n * 32 + ni * 8 + g) * LDS + ks + t4 * 4;
+                b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
+                b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+            }
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int ni = 0; ni < 4; ++ni) mma<INT8>(acc[mi][ni], a[mi], b[ni]);
+        }
+        if (kc != nk - 1) continue;
+
+        // ---- tile epilogue: products -> keys -> best-two per bucket ----
+        __syncthreads();
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+                const int r0 = warp_m * 32 + mi * 16 + g;
+                const int c0 = warp_n * 32 + ni * 8 + t4 * 2;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float v = acc[mi][ni][j];
+                    if (INT8) v = (float)__float_as_int(v);
+                    Cs[(r0 + (j >> 1) * 8) * LDC + c0 + (j & 1)] = v;
+                }
+            }
+        __syncthreads();
+        const int row = tile * BN + c;
+        const float vk = vkey[row];
+        const float vs = INT8 ? vscale[row] : 0.f;
+        const bool live = row < n;
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+            const int q = qh + 2 * i;
+            const float dot = Cs[q * LDC + c];
+            float key;
+            if (metric == EUCLIDEAN) {
+                if (INT8) {
+                    const float qs = (q0 + q < B) ? qscale[q0 + q] : 0.f;
+                    key = __fsub_rn(vk, __fmul_rn(__fmul_rn(2.f * qs, vs), dot));
+                } else {
+                    key = vk - 2.f * dot;
+                }
+            } else if (metric == COSINE || INT8) {
+                key = __fmul_rn(-dot, vk);
+            } else {
+                key = -dot;
+            }
+            insert2(live ? key : BIG, row, d1[i], r1[i], d2[i], r2[i]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+        const int q = q0 + qh + 2 * i;
+        if (q >= B) continue;
+        const long long base = ((long long)split * B + q) * (2 * BN);
+        part_d[base + c] = d1[i];
+        part_d[base + BN + c] = d2[i];
+        part_r[base + c] = r1[i];
+        part_r[base + BN + c] = r2[i];
+    }
+}
+
+__global__ void bucket_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_r,
+                                    float* __restrict__ out_d, int* __restrict__ out_r, int B,
+                                    int splits) {
+    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= (long long)B * BN) return;
+    const long long q = idx / BN;
+    const int c = (int)(idx % BN);
+    const long long o = q * (2 * BN) + c;
+    float a1 = part_d[o], a2 = part_d[o + BN];
+    int ai1 = part_r[o], ai2 = part_r[o + BN];
+    for (int s = 1; s < splits; ++s) {
+        const long long p = (long long)s * B * (2 * BN) + o;
+        merge2(a1, ai1, a2, ai2, part_d[p], part_r[p], part_d[p + BN], part_r[p + BN]);
+    }
+    out_d[o] = a1;
+    out_d[o + BN] = a2;
+    out_r[o] = ai1;
+    out_r[o + BN] = ai2;
+}
+
+int launch_bank(bool int8, const void* vectors, const void* vkey, const void* vscale,
+                const void* queries, const void* qscale, void* part_d, void* part_r, int B,
+                int N_pad, int D, int n, int metric, int splits, void* stream) {
+    if (B > 0 && splits > 0) {
+        const dim3 grid((B + BM - 1) / BM, splits);
+        if (int8) {
+            bucket_bank_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                (const uint8_t*)vectors, (const float*)vkey, (const float*)vscale,
+                (const uint8_t*)queries, (const float*)qscale, (float*)part_d, (int*)part_r,
+                B, N_pad, D, n, metric, splits);
+        } else {
+            bucket_bank_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+                (const uint8_t*)vectors, (const float*)vkey, nullptr, (const uint8_t*)queries,
+                nullptr, (float*)part_d, (int*)part_r, B, N_pad, D, n, metric, splits);
+        }
+    }
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int bucket_bank_bf16(const void* vectors, const void* vkey, const void* queries,
+                                void* part_d, void* part_r, int B, int N_pad, int D, int n,
+                                int metric, int splits, void* stream) {
+    return launch_bank(false, vectors, vkey, nullptr, queries, nullptr, part_d, part_r, B,
+                       N_pad, D, n, metric, splits, stream);
+}
+
+extern "C" int bucket_bank_int8(const void* v8, const void* vkey, const void* vscale,
+                                const void* q8, const void* qscale, void* part_d, void* part_r,
+                                int B, int N_pad, int D, int n, int metric, int splits,
+                                void* stream) {
+    return launch_bank(true, v8, vkey, vscale, q8, qscale, part_d, part_r, B, N_pad, D, n,
+                       metric, splits, stream);
+}
+
+extern "C" int bucket_merge(const void* part_d, const void* part_r, void* out_d, void* out_r,
+                            int B, int splits, void* stream) {
+    if (B > 0) {
+        const long long total = (long long)B * BN;
+        const int threads = 256;
+        bucket_merge_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                              (cudaStream_t)stream>>>((const float*)part_d, (const int*)part_r,
+                                                      (float*)out_d, (int*)out_r, B, splits);
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,258 @@
+"""HNSW index family. Counterpart of ``hnsw_tpu/models/hnsw/__init__.py``:
+exact-candidate build (build.py) and batched fixed-beam search (search.py).
+Mode presets map to ef as in ``config.HNSW_EF``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from hnsw_tpu_torch.config import DEFAULTS, Mode, ef_for
+from hnsw_tpu_torch.models.base import ANNIndex
+from hnsw_tpu_torch.models.common import as_corpus
+from hnsw_tpu_torch.models.hnsw.build import build_graph
+from hnsw_tpu_torch.models.hnsw.graph import HNSWGraph, empty_graph
+from hnsw_tpu_torch.models.hnsw.search import (hnsw_search_batch,
+                                               pack_neighbors,
+                                               pack_neighbors_int8,
+                                               sample_entries)
+from hnsw_tpu_torch.types import Corpus, Metric
+
+
+class HNSWIndex(ANNIndex):
+    family = "hnsw"
+
+    # neighbourhood-contiguous block packing (see search.pack_neighbors) is
+    # used while the duplicated table fits this budget; "auto" pack precision
+    # takes bf16 while it fits, else int8
+    PACK_BYTES_CAP = 6 << 30
+
+    def __init__(self, corpus: Corpus, graph: HNSWGraph, *,
+                 expand: int = 4, entry_mode: str = "sample",
+                 entry_sample: int = 512, precision: str = "auto",
+                 pack: str | bool = "auto",
+                 pack_dim: Optional[int] = None, rerank_mult: int = 4,
+                 pack_precision: str = "auto"):
+        super().__init__(corpus)
+        self.graph = graph
+        self.expand = expand
+        self.entry_mode = entry_mode
+        self.entry_sample = entry_sample
+        self.precision = precision
+        # a used pack is always scored by ops/hop.py: the CUDA kernels on
+        # the card, their plain versions on a CPU corpus
+        self.pack = pack
+        # dtype of the packed-neighbourhood table: "bf16", "int8" (per-row
+        # quantized codes + scales, half the bytes) or "auto"
+        self.pack_precision = pack_precision
+        # pack_dim: score hops against the top-pack_dim PCA projection of
+        # the corpus instead of the full-dim bf16 shadow; the final re-rank
+        # widens to rerank_mult*k beam entries at full dimension
+        self.pack_dim = pack_dim
+        self.rerank_mult = rerank_mult
+        self._sample_rows = None
+        self._vec_lp = None
+        self._proj = None
+        self._vsq_lp = None
+        self._nbr_pack = None
+        self._nbr_sq = None
+        self._nbr_scale = None
+
+    def _entry_rows(self) -> torch.Tensor:
+        if self._sample_rows is None or \
+                self._sample_rows.shape[0] > max(self.graph.n, 1):
+            s = min(self.entry_sample, max(self.graph.n, 1))
+            rows = np.unique(np.linspace(0, max(self.graph.n - 1, 0), s)
+                             .astype(np.int32))
+            self._sample_rows = torch.from_numpy(rows).to(self.corpus.device)
+        return self._sample_rows
+
+    def search_batch(self, queries, k: int, mode: Mode = Mode.BALANCED,
+                     ef: Optional[int] = None, debug_hops: bool = False):
+        q = self.corpus.pad_queries(queries)
+        dev = q.device
+        if self.graph.n == 0 or self.graph.entry < 0:
+            b = q.shape[0]
+            out = (torch.full((b, k), float("inf"), device=dev),
+                   torch.full((b, k), -1, dtype=torch.int32, device=dev))
+            return out + (0,) if debug_hops else out
+        ef = ef if ef is not None else ef_for(mode, k)
+        # "auto": bf16-class loop scoring for cosine; the euclidean norm
+        # formula cancels at bf16, so it keeps f32
+        precision = self.precision if self.precision != "auto" else (
+            "default" if self.corpus.metric == Metric.COSINE else "highest")
+        if self.entry_mode == "sample":
+            # one product against a row sample replaces the serial
+            # upper-layer descent; entry_mode="hierarchy" walks the layers
+            entries, _ = sample_entries(
+                self.corpus.vectors, self.corpus.sq_norms,
+                self._entry_rows(), q, metric=self.corpus.metric)
+            upper = self.graph.adj_upper[:0]
+        else:
+            entries = torch.full((q.shape[0],), self.graph.entry,
+                                 dtype=torch.int32, device=dev)
+            upper = self.graph.adj_upper
+        lowdim = (self.pack_dim is not None and precision != "highest"
+                  and self.pack_dim < self.corpus.vectors.shape[1])
+        loop_dim = self.pack_dim if lowdim else self.corpus.vectors.shape[1]
+        queries_lp = None
+        v_sq_lp = None
+        if lowdim:
+            if self._proj is None or self._proj.shape[1] != self.pack_dim:
+                # PCA basis: one [D, D] f32 product on the device and a host
+                # eigh (ascending eigenvalues)
+                vf = self.corpus.vectors
+                cov = torch.matmul(vf.T, vf).cpu().numpy()
+                w, v = np.linalg.eigh(cov)
+                self._proj = torch.from_numpy(
+                    v[:, ::-1][:, : self.pack_dim].copy()).to(dev)
+                self._vec_lp = None
+            if self._vec_lp is None or tuple(self._vec_lp.shape) != (
+                    self.corpus.vectors.shape[0], self.pack_dim):
+                self._vec_lp = torch.matmul(
+                    self.corpus.vectors, self._proj).to(torch.bfloat16)
+                vf = self._vec_lp.float()
+                self._vsq_lp = torch.sum(vf * vf, dim=-1)
+                self._nbr_pack = None
+            queries_lp = torch.matmul(q, self._proj)
+            v_sq_lp = self._vsq_lp
+        elif self._vec_lp is None or \
+                self._vec_lp.shape != self.corpus.vectors.shape:
+            self._vec_lp = self.corpus.vectors.to(torch.bfloat16)
+            self._vsq_lp = None
+        # the pack is a quantized shadow (bf16 or int8 codes): full-f32
+        # ("highest") scoring keeps exact row gathers
+        pack_bytes = {
+            "bf16": self.graph.n_pad * self.graph.m0 * (loop_dim * 2 + 4),
+            "int8": self.graph.n_pad * self.graph.m0 * (loop_dim + 8),
+        }
+        pp = self.pack_precision
+        if pp == "auto":
+            pp = "bf16" if pack_bytes["bf16"] <= self.PACK_BYTES_CAP \
+                else "int8"
+        use_pack = precision != "highest" and (self.pack is True or (
+            self.pack == "auto"
+            and pack_bytes[pp] <= self.PACK_BYTES_CAP))
+        want_dtype = torch.int8 if pp == "int8" else torch.bfloat16
+        if use_pack and (self._nbr_pack is None
+                         or self._nbr_pack.dtype != want_dtype):
+            src_sq = self._vsq_lp if lowdim else self.corpus.sq_norms
+            if pp == "int8":
+                self._nbr_pack, self._nbr_scale, self._nbr_sq = \
+                    pack_neighbors_int8(self._vec_lp, src_sq, self.graph.adj0)
+            else:
+                self._nbr_pack, self._nbr_sq = pack_neighbors(
+                    self._vec_lp, src_sq, self.graph.adj0)
+                self._nbr_scale = None
+        return hnsw_search_batch(
+            self.corpus.vectors, self.corpus.sq_norms,
+            self.graph.adj0, upper, entries, q,
+            k=k, ef=ef, expand=self.expand,
+            metric=self.corpus.metric, precision=precision,
+            vectors_lp=self._vec_lp,
+            nbr_pack=self._nbr_pack if use_pack else None,
+            nbr_sq=self._nbr_sq if use_pack else None,
+            nbr_scale=self._nbr_scale if use_pack else None,
+            queries_lp=queries_lp,
+            v_sq_lp=v_sq_lp,
+            # re-ranking a rerank_mult*k beam prefix exactly recovers the
+            # near-ties the bf16 shadow reorders
+            rerank=self.rerank_mult * k,
+            debug_hops=debug_hops,
+        )
+
+    def add_batch(self, data, ids=None, *, seed_offset: int = 0):
+        raise NotImplementedError(
+            "add_batch needs insert_wave, which a later slice of the port "
+            "brings")
+
+    def index_info(self) -> Dict[str, Any]:
+        info = self.graph.info()
+        info.update({
+            "type": self.family,
+            "num_vectors": self.corpus.n,
+            "dimensions": self.corpus.dim,
+            "metric": self.corpus.metric.value,
+        })
+        return info
+
+    def to_state(self) -> Dict[str, Any]:
+        g = self.graph
+        return {
+            "params": {
+                "M": g.m, "M0": g.m0, "ef_construction": g.ef_construction,
+                "entry": int(g.entry), "max_level": int(g.max_level),
+                "n": int(g.n), "expand": self.expand,
+                "n_bridges": int(g.n_bridges),
+            },
+            "arrays": {
+                "levels": g.levels.cpu().numpy(),
+                "adj0": g.adj0.cpu().numpy(),
+                "adj_upper": g.adj_upper.cpu().numpy(),
+            },
+        }
+
+    @classmethod
+    def from_state(cls, corpus: Corpus, state: Dict[str, Any],
+                   **kwargs) -> "HNSWIndex":
+        """Rebuild an index over `corpus` from a to_state() dict (numpy
+        arrays, as either package writes them); kwargs go to __init__."""
+        p, a = state["params"], state["arrays"]
+        dev = corpus.device
+
+        def arr(name):
+            return torch.from_numpy(
+                np.array(a[name], dtype=np.int32)).to(dev)
+
+        graph = HNSWGraph(
+            levels=arr("levels"), adj0=arr("adj0"), adj_upper=arr("adj_upper"),
+            entry=int(p["entry"]), max_level=int(p["max_level"]),
+            m=int(p["M"]), m0=int(p["M0"]),
+            ef_construction=int(p["ef_construction"]), n=int(p["n"]),
+            n_bridges=int(p.get("n_bridges", 0)),
+        )
+        kwargs.setdefault("expand", int(p.get("expand", 4)))
+        return cls(corpus, graph, **kwargs)
+
+
+def build_hnsw_index(
+    data,
+    *,
+    M: int = DEFAULTS["M"],
+    max_M0: Optional[int] = None,
+    ef_construction: int = DEFAULTS["ef_construction"],
+    metric="cosine",
+    ids=None,
+    seed: int = DEFAULTS["seed"],
+    k_cand: Optional[int] = None,
+    expand: int = 4,
+    pack_dim: Optional[int] = None,
+    pack_precision: str = "auto",
+    rerank_mult: int = 4,
+    hierarchy: bool = True,
+    progress=None,
+    should_continue=None,
+    device=None,
+    **_ignored,
+) -> HNSWIndex:
+    """Build an HNSW index from [n, dim] arrays, [id, vec] pairs, or a
+    Corpus, on the CUDA card unless device says otherwise."""
+    corpus = as_corpus(data, metric=metric, ids=ids, device=device)
+    if corpus.n == 0:
+        graph = empty_graph(corpus.n_pad or 8, M, max_M0 or 2 * M, 0,
+                            ef_construction, device=corpus.device)
+    else:
+        graph = build_graph(corpus, m=M, m0=max_M0,
+                            ef_construction=ef_construction,
+                            seed=seed, k_cand=k_cand,
+                            hierarchy=hierarchy,
+                            progress=progress, should_continue=should_continue)
+    return HNSWIndex(corpus, graph, expand=expand, pack_dim=pack_dim,
+                     pack_precision=pack_precision, rerank_mult=rerank_mult)
+
+
+__all__ = ["HNSWIndex", "build_hnsw_index", "HNSWGraph", "build_graph",
+           "hnsw_search_batch"]

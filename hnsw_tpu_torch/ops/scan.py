@@ -1,0 +1,332 @@
+"""Fused flat scan with bucketed best-two selection (bf16 and int8).
+
+Counterpart of the bucketed kernels of ``hnsw_tpu/ops/pallas_scan.py``
+(``pallas_bucket_topk`` and ``pallas_int8_bucket_topk``). Per query, a
+monotone key is formed for every corpus row (cosine: -dots/|v|; euclidean:
+|v|^2 - 2 dots; dot: -dots, with the int8 dequantisation scales folded in),
+and the best TWO rows of each of KPAD=128 buckets (bucket = row mod 128) are
+kept in a [B, 256] bank. The exact top-k of the bank is then taken outside
+the kernel and distances are rebuilt from the key. A true top-k row is lost
+only when three or more of the top k share a bucket.
+
+On a CUDA tensor, ``bucket_bank`` launches the hand-written kernels in
+``csrc/scan.cu`` (bound by tensor-core operations; see the note there); on
+a CPU tensor it runs ``bucket_bank_plain``, the same algorithm in plain
+PyTorch, tile by tile as the TPU kernel walks its corpus tiles.
+
+The "sweep" (``pallas_exact_topk``, ``pallas_int8_topk``) and "packed"
+(``pallas_int8_packed_topk``) variants are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from hnsw_tpu_torch.ops import _cuda
+from hnsw_tpu_torch.ops.distance import BIG
+from hnsw_tpu_torch.ops.topk import top_k_ascending
+from hnsw_tpu_torch.types import Metric
+
+# query / corpus tile sizes of the reference's default call shapes; the
+# wrappers keep its shape contract (n_pad % nt == 0, b % bt == 0) and the
+# plain version walks the corpus in tiles of nt
+DEFAULT_BT = 512
+DEFAULT_NT = 1024
+INT8_BT = 256
+INT8_NT = 2048
+# buckets per bank half
+KPAD = 128
+INT_BIG = 2 ** 30
+
+_METRIC_CODE = {Metric.COSINE: 0, Metric.EUCLIDEAN: 1, Metric.DOT: 2}
+
+
+def supported(k: int) -> bool:
+    """k range served by the fused scans (larger k takes the exact f32 scan,
+    as in the reference)."""
+    return 1 <= k <= 32
+
+
+# ---------------------------------------------------------------------------
+# plain version: the reference's tile loop
+# ---------------------------------------------------------------------------
+
+def _bucket_min2(key, rows, g: int, c: int):
+    """Per-bucket (best, second-best) of key [BT, g*c] with payload rows.
+    Bucket b holds lanes {b, c+b, 2c+b, ...}. Returns d1, r1, d2, r2 [BT, c]."""
+    bt = key.shape[0]
+    k3 = key.reshape(bt, g, c)
+    r3 = rows.reshape(bt, g, c)
+    d1 = torch.amin(k3, dim=1)
+    is1 = k3 == d1[:, None, :]
+    r1 = torch.amin(torch.where(is1, r3, INT_BIG), dim=1)
+    killed = r3 == r1[:, None, :]          # row ids unique within a tile
+    k3b = torch.where(killed, BIG, k3)
+    d2 = torch.amin(k3b, dim=1)
+    is2 = k3b == d2[:, None, :]
+    r2 = torch.amin(torch.where(is2, r3, INT_BIG), dim=1)
+    r1 = torch.where(r1 == INT_BIG, -1, r1)
+    r2 = torch.where(r2 == INT_BIG, -1, r2)
+    return d1, r1, d2, r2
+
+
+def _merge_pair2(a1, ai1, a2, ai2, b1, bi1, b2, bi2):
+    """Smallest two of {a1, a2, b1, b2} (a1 <= a2, b1 <= b2), elementwise;
+    a (the earlier rows) wins a tie on the first comparison."""
+    a_first = a1 <= b1
+    n1 = torch.where(a_first, a1, b1)
+    ni1 = torch.where(a_first, ai1, bi1)
+    mid = torch.where(a_first, b1, a1)
+    mi = torch.where(a_first, bi1, ai1)
+    o2 = torch.minimum(a2, b2)
+    oi2 = torch.where(a2 <= b2, ai2, bi2)
+    n2 = torch.where(mid <= o2, mid, o2)
+    ni2 = torch.where(mid <= o2, mi, oi2)
+    return n1, ni1, n2, ni2
+
+
+def _bank_plain(key_tile, n_pad: int, b: int, n: int, nt: int, device):
+    c = KPAD
+    bank_d = torch.full((b, 2 * c), BIG, dtype=torch.float32, device=device)
+    bank_r = torch.full((b, 2 * c), -1, dtype=torch.int32, device=device)
+    cols = torch.arange(nt, dtype=torch.int32, device=device)
+    for ti in range(n_pad // nt):
+        key = key_tile(ti * nt, (ti + 1) * nt)              # [B, nt]
+        rows = (ti * nt + cols).expand(b, nt)
+        key = torch.where(rows < n, key, BIG)
+        t1, tr1, t2, tr2 = _bucket_min2(key, rows, nt // c, c)
+        n1, ni1, n2, ni2 = _merge_pair2(bank_d[:, :c], bank_r[:, :c],
+                                        bank_d[:, c:], bank_r[:, c:],
+                                        t1, tr1, t2, tr2)
+        bank_d = torch.cat([n1, n2], dim=1)
+        bank_r = torch.cat([ni1, ni2], dim=1)
+    return bank_d, bank_r
+
+
+def bucket_bank_plain(vectors, vkey, queries, n, *, metric: Metric,
+                      nt: int = DEFAULT_NT):
+    """Plain version of the bf16 bank: vectors [N_pad, D] bf16, vkey [N_pad]
+    f32 (1/|v| cosine, |v|^2 euclidean, unused for dot), queries [B, D] bf16.
+    Returns (bank keys f32 [B, 256], bank rows int32 [B, 256])."""
+    metric = Metric.coerce(metric)
+    qf = queries.float()
+
+    def key_tile(lo, hi):
+        dots = torch.matmul(qf, vectors[lo:hi].float().T)   # exact widening
+        vk = vkey[lo:hi][None, :]
+        if metric == Metric.COSINE:
+            return -dots * vk
+        if metric == Metric.EUCLIDEAN:
+            return vk - 2.0 * dots
+        return -dots
+
+    return _bank_plain(key_tile, vectors.shape[0], queries.shape[0], int(n),
+                       nt, vectors.device)
+
+
+def int8_bucket_bank_plain(v8, vkey, vscale, q8, qscale, n, *,
+                           metric: Metric, nt: int = INT8_NT):
+    """Plain version of the int8 bank: v8 [N_pad, D] int8, vkey [N_pad]
+    (vscale/|v| cosine, |v|^2 euclidean, vscale dot), vscale [N_pad],
+    q8 [B, D] int8, qscale [B]. int8 x int8 dots of D <= 1040 stay below
+    2^24, so the f32 product below is the exact int32 dot."""
+    metric = Metric.coerce(metric)
+    qf = q8.float()
+    qs = qscale.float()[:, None]
+
+    def key_tile(lo, hi):
+        dots = torch.matmul(qf, v8[lo:hi].float().T)
+        vk = vkey[lo:hi][None, :]
+        if metric == Metric.EUCLIDEAN:
+            return vk - 2.0 * qs * vscale[lo:hi][None, :] * dots
+        return -dots * vk
+
+    return _bank_plain(key_tile, v8.shape[0], q8.shape[0], int(n), nt,
+                       v8.device)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _splits(qblocks: int, ntiles: int, device) -> int:
+    """Corpus splits per query block: the count that fills the card's SMs
+    in the most even number of waves (one block per SM at a time)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    best, best_eff = 1, 0.0
+    for s in range(1, min(ntiles, 16) + 1):
+        waves = qblocks * s / sms
+        eff = waves / math.ceil(waves)
+        if eff > best_eff + 1e-9:
+            best, best_eff = s, eff
+    return best
+
+
+def _launch_bank(int8: bool, vectors, vkey, queries, n, metric, vscale=None,
+                 qscale=None):
+    dev = vectors.device
+    n_pad, d = vectors.shape
+    b = queries.shape[0]
+    dtype = torch.int8 if int8 else torch.bfloat16
+    _cuda.require(vectors.dtype == dtype and queries.dtype == dtype,
+                  f"vectors and queries must be {dtype}")
+    _cuda.require(queries.ndim == 2 and queries.shape[1] == d,
+                  f"queries must be [B, {d}]")
+    _cuda.require(n_pad % KPAD == 0, "N_pad must be a multiple of 128")
+    _cuda.require((d * vectors.element_size()) % 128 == 0,
+                  "rows must be a multiple of 128 bytes")
+    extra = [vscale, qscale] if int8 else []
+    for t in [vectors, vkey, queries] + extra:
+        _cuda.require(t.is_cuda and t.device == dev,
+                      "all tensors must be on one CUDA device")
+        _cuda.require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                      "tensors must be contiguous and 16-byte aligned")
+    for t in [vkey] + extra:
+        _cuda.require(t.dtype == torch.float32, "scales/keys must be float32")
+    _cuda.require(vkey.shape == (n_pad,), "vkey must be [N_pad]")
+    if int8:
+        _cuda.require(vscale.shape == (n_pad,) and qscale.shape == (b,),
+                      "vscale must be [N_pad] and qscale [B]")
+    ntiles = n_pad // KPAD
+    splits = _splits(-(-b // 64), ntiles, dev)
+    part_d = torch.empty((splits, b, 2 * KPAD), dtype=torch.float32, device=dev)
+    part_r = torch.empty((splits, b, 2 * KPAD), dtype=torch.int32, device=dev)
+    out_d = torch.empty((b, 2 * KPAD), dtype=torch.float32, device=dev)
+    out_r = torch.empty((b, 2 * KPAD), dtype=torch.int32, device=dev)
+    lib = _cuda.library("scan.cu")
+    stream = _cuda.stream_ptr(dev)
+    if int8:
+        code = lib.bucket_bank_int8(
+            vectors.data_ptr(), vkey.data_ptr(), vscale.data_ptr(),
+            queries.data_ptr(), qscale.data_ptr(), part_d.data_ptr(),
+            part_r.data_ptr(), b, n_pad, d, int(n), _METRIC_CODE[metric],
+            splits, stream)
+    else:
+        code = lib.bucket_bank_bf16(
+            vectors.data_ptr(), vkey.data_ptr(), queries.data_ptr(),
+            part_d.data_ptr(), part_r.data_ptr(), b, n_pad, d, int(n),
+            _METRIC_CODE[metric], splits, stream)
+    _cuda.check(code, "int8_bucket_topk" if int8 else "bucket_topk")
+    code = lib.bucket_merge(part_d.data_ptr(), part_r.data_ptr(),
+                            out_d.data_ptr(), out_r.data_ptr(), b, splits,
+                            stream)
+    _cuda.check(code, "bucket_merge")
+    if int8:
+        int8_bucket_topk.launches += 1
+    else:
+        bucket_topk.launches += 1
+    return out_d, out_r
+
+
+def bucket_bank(vectors, vkey, queries, n, *, metric: Metric,
+                nt: int = DEFAULT_NT):
+    """The bf16 best-two bank [B, 256] (keys, rows): the CUDA kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    metric = Metric.coerce(metric)
+    if vectors.device.type == "cpu":
+        return bucket_bank_plain(vectors, vkey, queries, n, metric=metric,
+                                 nt=nt)
+    return _launch_bank(False, vectors, vkey, queries, n, metric)
+
+
+def int8_bucket_bank(v8, vkey, vscale, q8, qscale, n, *, metric: Metric,
+                     nt: int = INT8_NT):
+    """The int8 best-two bank [B, 256] (keys, rows)."""
+    metric = Metric.coerce(metric)
+    if v8.device.type == "cpu":
+        return int8_bucket_bank_plain(v8, vkey, vscale, q8, qscale, n,
+                                      metric=metric, nt=nt)
+    return _launch_bank(True, v8, vkey, q8, n, metric, vscale=vscale,
+                        qscale=qscale)
+
+
+def bf16_vkey(v_sq, metric: Metric):
+    metric = Metric.coerce(metric)
+    if metric == Metric.COSINE:
+        return 1.0 / torch.sqrt(torch.clamp(v_sq, min=1e-12))
+    if metric == Metric.EUCLIDEAN:
+        return v_sq
+    return torch.zeros_like(v_sq)
+
+
+def int8_vkey(vscale, v_sq, metric: Metric):
+    metric = Metric.coerce(metric)
+    if metric == Metric.COSINE:
+        return vscale / torch.sqrt(torch.clamp(v_sq, min=1e-12))
+    if metric == Metric.EUCLIDEAN:
+        return v_sq
+    return vscale
+
+
+def _bank_topk(bank_d, bank_r, k: int):
+    kk = min(k, bank_d.shape[-1])
+    dk, sel = top_k_ascending(bank_d, kk)
+    return dk, torch.gather(bank_r, -1, sel)
+
+
+def _pad_k(d, r, k: int):
+    if d.shape[-1] < k:
+        pad = k - d.shape[-1]
+        d = torch.nn.functional.pad(d, (0, pad), value=BIG)
+        r = torch.nn.functional.pad(r, (0, pad), value=-1)
+    return d, r
+
+
+def bucket_topk(vectors, v_sq, queries, n, *, k: int, metric: Metric,
+                bt: int = DEFAULT_BT, nt: int = DEFAULT_NT):
+    """Bucketed fused bf16 scan (``pallas_bucket_topk``).
+
+    vectors [N_pad, D] bf16 (N_pad % nt == 0), v_sq [N_pad] f32, queries
+    [B, D] bf16 (B % bt == 0), n valid rows. Returns (dists f32 [B, k],
+    rows int32 [B, k]); top-k is exact up to 3-way bucket collisions."""
+    metric = Metric.coerce(metric)
+    n_pad = vectors.shape[0]
+    b = queries.shape[0]
+    if n_pad % nt or b % bt:
+        raise ValueError(f"need n_pad % nt == 0 and b % bt == 0, got "
+                         f"{(n_pad, nt, b, bt)}")
+    bank_d, bank_r = bucket_bank(vectors, bf16_vkey(v_sq, metric), queries, n,
+                                 metric=metric, nt=nt)
+    dk, rk = _bank_topk(bank_d, bank_r, k)
+    q_sq = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
+    if metric == Metric.COSINE:
+        dist = 1.0 + dk / torch.sqrt(torch.clamp(q_sq, min=1e-12))
+    elif metric == Metric.EUCLIDEAN:
+        dist = torch.sqrt(torch.clamp(dk + q_sq, min=0.0))
+    else:
+        dist = dk
+    ok = (dk < BIG) & (rk >= 0)
+    dist = torch.where(ok, dist, BIG)
+    rk = torch.where(ok, rk, -1)
+    return _pad_k(dist, rk, k)
+
+
+def int8_bucket_topk(v8, vscale, v_sq, q8, qmeta, n, *, k: int,
+                     metric: Metric, bt: int = DEFAULT_BT,
+                     nt: int = DEFAULT_NT):
+    """Bucketed quantized coarse scan (``pallas_int8_bucket_topk``).
+
+    v8 [N_pad, D] int8, vscale / v_sq [N_pad] f32, q8 [B, D] int8,
+    qmeta [B, 2] f32 (dequant scale, exact |q|^2). Returns (coarse keys
+    [B, k], candidate rows int32 [B, k]); callers re-rank or rebuild
+    distances from the keys."""
+    metric = Metric.coerce(metric)
+    n_pad = v8.shape[0]
+    b = q8.shape[0]
+    if n_pad % nt or b % bt:
+        raise ValueError(f"need n_pad % nt == 0 and b % bt == 0, got "
+                         f"{(n_pad, nt, b, bt)}")
+    qscale = qmeta[:, 0].contiguous()
+    bank_d, bank_r = int8_bucket_bank(v8, int8_vkey(vscale, v_sq, metric),
+                                      vscale, q8, qscale, n, metric=metric,
+                                      nt=nt)
+    dk, rk = _bank_topk(bank_d, bank_r, k)
+    rk = torch.where((dk < BIG) & (rk >= 0), rk, -1)
+    return _pad_k(dk, rk, k)
+
+
+# launch counts: incremented where a kernel is launched, nowhere else
+bucket_topk.launches = 0
+int8_bucket_topk.launches = 0

@@ -1,0 +1,131 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here is marked `gpu` and skips on a host without a CUDA card. This
+file imports neither JAX nor the JAX package, so it also runs where JAX is
+not installed; on the card:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q
+
+Tolerances: kernel and plain version form the same exact bf16 x bf16
+(bf16 x int8, s8 x s8) products and differ only in the order of the f32
+sums; bucket rows may differ only where two keys tie within that error.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hnsw_tpu_torch.io.datagen import generate_vectors
+from hnsw_tpu_torch.models import FlatIndex, HNSWIndex, build_hnsw_index
+from hnsw_tpu_torch.models.flat import quantize_rows
+from hnsw_tpu_torch.ops import hop, scan
+from hnsw_tpu_torch.types import Corpus
+
+pytestmark = pytest.mark.gpu
+
+KEY_TOL = 2e-5
+
+
+@pytest.fixture
+def cuda_device():
+    """The CUDA card; skips where there is none. Decided when the test
+    runs, never at import, so every test worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def recall(rows, exact_rows) -> float:
+    hit = (rows[:, :, None] == exact_rows[:, None, :]).any(-1) & (rows >= 0)
+    return float(hit.float().sum(-1).mean()) / exact_rows.shape[1]
+
+
+def test_hop_kernels_match_plain_versions(cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for b, e, m0, d, n in ((5, 3, 8, 128, 64), (300, 4, 32, 768, 2000),
+                           (1, 1, 7, 16, 3)):
+        pack = torch.randn(n, m0, d, generator=g).to(torch.bfloat16)
+        codes = torch.randint(-127, 128, (n, m0, d), generator=g,
+                              dtype=torch.int8)
+        q = torch.randn(b, d, generator=g)
+        sel = torch.randint(-1, n, (b, e), generator=g, dtype=torch.int32)
+        args = [t.to(cuda_device) for t in (pack, q, sel)]
+        before = hop.hop_score.launches
+        kd, kc = hop.hop_score(*args)
+        assert hop.hop_score.launches == before + 1
+        pd, pc = hop.hop_score_plain(*args)
+        np.testing.assert_allclose(kd.cpu(), pd.cpu(), rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(kc.cpu(), pc.cpu(), rtol=1e-5)
+        args[0] = codes.to(cuda_device)
+        np.testing.assert_allclose(hop.hop_score_int8(*args).cpu(),
+                                   hop.hop_score_int8_plain(*args).cpu(),
+                                   rtol=1e-5, atol=5e-2)
+
+
+def test_hop_kernel_refuses_what_it_cannot_take(cuda_device):
+    pack = torch.zeros((4, 8, 24), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((2, 24), device=cuda_device)
+    sel = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):          # D not a multiple of 16
+        hop.hop_score(pack, q, sel)
+    with pytest.raises(ValueError):          # int64 rows
+        hop.hop_score(pack[:, :, :16].contiguous(), q[:, :16].contiguous(),
+                      sel.long())
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_bucket_banks_match_plain_versions(metric, cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    for b, n_pad, d, n in ((70, 1024, 256, 1000), (300, 4096, 768, 4000),
+                           (8, 128, 128, 5)):
+        v = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g),
+                                          dim=1)
+        q = v[torch.randint(0, n, (b,), generator=g)]
+        vsq = (v * v).sum(1)
+        vb, qb = v.to(torch.bfloat16), q.to(torch.bfloat16)
+        args = [t.to(cuda_device) for t in (vb, scan.bf16_vkey(vsq, metric),
+                                            qb)]
+        kd, kr = scan.bucket_bank(*args, n, metric=metric)
+        pd, pr = scan.bucket_bank_plain(*args, n, metric=metric, nt=128)
+        live = (pd < 1e29).cpu()
+        np.testing.assert_allclose(kd.cpu()[live], pd.cpu()[live],
+                                   atol=KEY_TOL)
+        assert ((kr == pr).cpu()[live]).float().mean() > 0.999
+        assert (kd.cpu()[~live] >= 1e29).all()
+
+        v8, vs = quantize_rows(v)
+        q8, qs = quantize_rows(q)
+        args = [t.to(cuda_device) for t in (v8, scan.int8_vkey(vs, vsq, metric),
+                                            vs, q8, qs)]
+        kd, kr = scan.int8_bucket_bank(*args, n, metric=metric)
+        pd, pr = scan.int8_bucket_bank_plain(*args, n, metric=metric, nt=128)
+        live = (pd < 1e29).cpu()
+        np.testing.assert_allclose(kd.cpu()[live], pd.cpu()[live],
+                                   rtol=1e-6, atol=1e-5)
+        assert ((kr == pr).cpu()[live]).float().mean() > 0.999
+
+
+def test_main_path_on_the_card_matches_the_plain_path(cuda_device):
+    """The whole slice at a small size: the same index on the card (CUDA
+    kernels) and on the CPU (their plain versions)."""
+    data = generate_vectors(3000, 128, distribution="embedding",
+                            num_clusters=16, seed=3)
+    q = data[:256]
+    gpu = build_hnsw_index(data, device=cuda_device)
+    cpu = HNSWIndex.from_state(
+        Corpus.from_array(data, device="cpu"), gpu.to_state())
+    for pp in ("bf16", "int8"):
+        gpu.pack_precision = cpu.pack_precision = pp
+        before = (hop.hop_score.launches, hop.hop_score_int8.launches)
+        gd, gr = gpu.search_batch(q, 10, "balanced")
+        assert (hop.hop_score.launches, hop.hop_score_int8.launches) != before
+        cd, cr = cpu.search_batch(q, 10, "balanced")
+        same = (gr.cpu() == cr).all(dim=1).float().mean()
+        assert same >= 0.99
+    exact = FlatIndex(gpu.corpus)
+    _, er = exact.search_batch(q, 10)
+    for precision, fetch, bar in (("bf16", None, 0.98), ("int8", None, 0.98),
+                                  ("int8", 0, 0.95)):
+        idx = FlatIndex(gpu.corpus, precision=precision, int8_fetch=fetch)
+        _, r = idx.search_batch(q, 10)
+        assert recall(r, er) >= bar

@@ -1,0 +1,194 @@
+"""Port of the bucketed flat-scan kernels (hnsw_tpu_torch/ops/scan.py).
+
+On the CPU the wrappers run their plain PyTorch versions, which walk the
+corpus tile by tile and keep the same [B, 256] best-two bucket bank as the
+JAX Pallas kernels (ops/pallas_scan.py). These tests hold them against
+pallas_bucket_topk and pallas_int8_bucket_topk in interpret mode, with the
+same tile sizes, on the same numpy inputs.
+
+Comparing at k = 256 returns the whole bank, sorted. Tolerances: bf16 keys
+are f32 sums of exact bf16 products, taken in another order, so they agree
+to KEY_TOL; int8 keys multiply an exact int32 dot by f32 scales (same order
+of operations), so they agree to a few ulps. Rows must be identical wherever
+a value is not tied with its neighbour within that tolerance.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from hnsw_tpu.ops import pallas_scan as jscan
+from hnsw_tpu.types import Corpus as JCorpus
+from hnsw_tpu.types import Metric as JMetric
+
+from hnsw_tpu_torch.ops import scan
+from tests.conftest import brute_force_knn, make_unit
+from tests.torch_support import recall
+
+KEY_TOL = 2e-5
+METRICS = ["cosine", "euclidean", "dot"]
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _assert_same_bank_order(got_v, got_r, want_v, want_r, tol):
+    got_v, want_v = np.asarray(got_v), np.asarray(want_v)
+    got_r, want_r = np.asarray(got_r), np.asarray(want_r)
+    np.testing.assert_allclose(got_v, want_v, atol=tol, rtol=1e-6)
+    gap = np.abs(np.diff(want_v, axis=1))
+    big = np.full((want_v.shape[0], 1), np.inf)
+    untied = (np.minimum(np.concatenate([big, gap], 1),
+                         np.concatenate([gap, big], 1)) > 2 * tol)
+    np.testing.assert_array_equal(got_r[untied], want_r[untied])
+    return untied.mean()
+
+
+def _bf16_case(data, metric, n_pad, nq, pad_rows=None):
+    c = JCorpus.from_array(data, metric=metric)
+    v = np.zeros((n_pad, c.d_pad), np.float32)
+    v[: c.n_pad] = np.asarray(c.vectors)
+    if pad_rows is not None:            # rows >= n that would win if seen
+        v[c.n: c.n + len(pad_rows), : c.dim] = pad_rows
+    vsq = (v * v).sum(1)
+    q = np.asarray(c.pad_queries(data[:nq]))
+    return c.n, jnp.asarray(v, jnp.bfloat16), vsq, jnp.asarray(q, jnp.bfloat16)
+
+
+def _port_args(vb, vsq, qb):
+    return (_t(vb.astype(jnp.float32)).to(torch.bfloat16), _t(vsq),
+            _t(qb.astype(jnp.float32)).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_bucket_bank_matches_pallas(metric):
+    data = make_unit(1000, 64, seed=81)
+    n, vb, vsq, qb = _bf16_case(data, metric, 1024, 128)
+    kw = dict(metric=JMetric(metric), bt=128, nt=256, interpret=True)
+    args = (vb, jnp.asarray(vsq), qb, n)
+    targs = _port_args(vb, vsq, qb)
+    for k in (256, 10):
+        jd, jr = jscan.pallas_bucket_topk(*args, k=k, **kw)
+        td, tr = scan.bucket_topk(*targs, n, k=k, metric=metric, bt=128,
+                                  nt=256)
+        assert td.shape == (128, k) and tr.dtype == torch.int32
+        # euclidean distances are sqrt(key + |q|^2): compare in the key's
+        # own (squared) domain, where the sum-order error is additive
+        p = 2 if metric == "euclidean" else 1
+        frac = _assert_same_bank_order(td.numpy() ** p, tr.numpy(),
+                                       np.asarray(jd) ** p, jr, KEY_TOL)
+        assert frac > 0.5
+    # and the top 10 are the exact top 10 up to bucket collisions
+    _, exact = brute_force_knn(data, data[:128], 10, metric)
+    assert recall(tr.numpy(), exact) >= 0.98
+
+
+def test_bucket_rows_beyond_n_are_masked():
+    # rows >= n hold copies of the queries: they would rank first if the
+    # mask were missing
+    data = make_unit(1000, 64, seed=82)
+    n, vb, vsq, qb = _bf16_case(data, "cosine", 1024, 16,
+                                pad_rows=data[:16])
+    jd, jr = jscan.pallas_bucket_topk(vb, jnp.asarray(vsq), qb, n, k=10,
+                                      metric=JMetric.COSINE, bt=16, nt=256,
+                                      interpret=True)
+    td, tr = scan.bucket_topk(*_port_args(vb, vsq, qb), n, k=10,
+                              metric="cosine", bt=16, nt=256)
+    assert (tr.numpy() < n).all() and (tr.numpy() >= 0).all()
+    _assert_same_bank_order(td.numpy(), tr.numpy(), jd, jr, KEY_TOL)
+
+
+def test_bucket_k_greater_than_valid_rows():
+    data = make_unit(6, 16, seed=83)
+    n, vb, vsq, qb = _bf16_case(data, "cosine", 256, 1)
+    qb = jnp.tile(qb, (16, 1))
+    jd, jr = jscan.pallas_bucket_topk(vb, jnp.asarray(vsq), qb, n, k=10,
+                                      metric=JMetric.COSINE, bt=16, nt=256,
+                                      interpret=True)
+    td, tr = scan.bucket_topk(*_port_args(vb, vsq, qb), n, k=10,
+                              metric="cosine", bt=16, nt=256)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    assert (tr.numpy()[:, :6] >= 0).all() and (tr.numpy()[:, 6:] == -1).all()
+    assert (td.numpy()[:, 6:] == scan.BIG).all()
+
+
+def _int8_case(data, metric, n_pad, nq):
+    c = JCorpus.from_array(data, metric=metric)
+    v = jnp.zeros((n_pad, c.d_pad)).at[: c.n_pad].set(c.vectors)
+    vmax = jnp.maximum(jnp.max(jnp.abs(v), axis=1, keepdims=True), 1e-12)
+    vscale = vmax / 127.0
+    v8 = jnp.clip(jnp.round(v / vscale), -127, 127).astype(jnp.int8)
+    vsq = jnp.zeros((n_pad,)).at[: c.n_pad].set(c.sq_norms)
+    qf = c.pad_queries(data[:nq])
+    qscale = jnp.maximum(jnp.max(jnp.abs(qf), axis=1, keepdims=True),
+                         1e-12) / 127.0
+    q8 = jnp.clip(jnp.round(qf / qscale), -127, 127).astype(jnp.int8)
+    qmeta = jnp.concatenate([qscale, jnp.sum(qf * qf, 1, keepdims=True)], 1)
+    return c.n, (v8, vscale[:, 0], vsq, q8, qmeta)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_int8_bucket_bank_matches_pallas(metric):
+    data = make_unit(600, 64, seed=87)
+    n, jargs = _int8_case(data, metric, 1024, 64)
+    targs = [_t(a) for a in jargs]
+    for k in (256, 20):
+        jd, jr = jscan.pallas_int8_bucket_topk(
+            *jargs, n, k=k, metric=JMetric(metric), bt=64, nt=256,
+            interpret=True)
+        td, tr = scan.int8_bucket_topk(*targs, n, k=k, metric=metric, bt=64,
+                                       nt=256)
+        live = np.asarray(jd) < scan.BIG
+        tol = 1e-6 * max(np.abs(np.asarray(jd)[live]).max(), 1.0)
+        _assert_same_bank_order(td.numpy(), tr.numpy(), jd, jr, tol)
+    _, exact = brute_force_knn(data, data[:64], 10, metric)
+    assert recall(tr.numpy(), exact) >= 0.98
+
+
+def test_int8_k_greater_than_valid_rows():
+    data = make_unit(6, 16, seed=94)
+    n, jargs = _int8_case(data, "cosine", 256, 1)
+    jargs = jargs[:3] + (jnp.tile(jargs[3], (64, 1)),
+                         jnp.tile(jargs[4], (64, 1)))
+    jd, jr = jscan.pallas_int8_bucket_topk(*jargs, n, k=10,
+                                           metric=JMetric.COSINE, bt=64,
+                                           nt=256, interpret=True)
+    td, tr = scan.int8_bucket_topk(*[_t(a) for a in jargs], n, k=10,
+                                   metric="cosine", bt=64, nt=256)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    assert (tr.numpy()[:, 6:] == -1).all()
+
+
+def test_bucket_primitives_match_reference_exactly():
+    # the per-tile best-two and the bank merge, on integer keys full of ties
+    rng = np.random.default_rng(7)
+    bt, g, c = 8, 4, scan.KPAD
+    key = rng.integers(0, 6, (bt, g * c)).astype(np.float32)
+    rows = np.tile(np.arange(g * c, dtype=np.int32) + 512, (bt, 1))
+    want = jscan._bucket_min2(jnp.asarray(key), jnp.asarray(rows), g, c)
+    got = scan._bucket_min2(_t(key), _t(rows), g, c)
+    for w, t in zip(want, got):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(w))
+    a = [np.asarray(x) for x in jscan._bucket_min2(
+        jnp.asarray(rng.integers(0, 6, (bt, g * c)).astype(np.float32)),
+        jnp.asarray(rows - 512), g, c)]
+    want = jscan._merge_pair2(*[jnp.asarray(x) for x in a + list(want)])
+    got = scan._merge_pair2(*[_t(x) for x in a], *got)
+    for w, t in zip(want, got):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(w))
+
+
+def test_shape_contract_and_supported_k():
+    assert [scan.supported(k) for k in (0, 1, 32, 33)] == \
+        [jscan.supported(k) for k in (0, 1, 32, 33)]
+    assert (scan.DEFAULT_BT, scan.DEFAULT_NT, scan.INT8_BT, scan.INT8_NT,
+            scan.KPAD) == (jscan.DEFAULT_BT, jscan.DEFAULT_NT, jscan.INT8_BT,
+                           jscan.INT8_NT, jscan.KPAD)
+    v = torch.zeros((300, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        scan.bucket_topk(v, torch.zeros(300), v[:8], 10, k=5,
+                         metric="cosine", bt=8, nt=256)
+
