@@ -12,9 +12,15 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
   4. the main path at full width: a 31,173 x 768 embedding-like corpus
      (cosine), the exact f32 flat index as ground truth, the bf16 and int8
      flat scans, the HNSW build (M=16) and HNSW serving with the bf16 and
-     the int8 neighbour pack. Launch counts are zeroed just before and read
-     just after, and every kernel must have run.
-Then one JSON line of per-kernel records, and as the last line
+     the int8 neighbour pack;
+  5. the API path at full width (hnsw_tpu_torch.build_index, save_index,
+     load_index, Index): flat indexes with scan_kernel "sweep" (bf16, int8)
+     and "packed" (int8), the packed DOT guard on an unnormalized corpus,
+     save / load in .npz and .idx, and a stateful HNSW index of 30,149 rows
+     grown by one wave insert of 1,024.
+Phases 4 and 5 each zero the launch counts just before and read them just
+after; each must have run its kernels, and all seven together. Then one
+JSON line of per-kernel records, and as the last line
 {"ok": true, "device": {...}}.
 
 It imports nothing of JAX. Without a CUDA card it exits 1 and prints no
@@ -37,6 +43,8 @@ BF16_OPS_S = 989e12
 INT8_OPS_S = 1979e12
 
 N, DIM, SEED = 31173, 768, 42
+KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
+           "exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk")
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
@@ -249,6 +257,178 @@ def check_scan_kernels(torch, data, records):
         library_ms=lib_ms)
 
 
+def _row_agreement(got_r, want_r) -> float:
+    return float((got_r == want_r).float().mean())
+
+
+def check_sweep_kernels(torch, data, records):
+    """The two sweep kernels against their plain versions, in every metric,
+    at FlatIndex's shapes: bf16 on the 1024-padded pack (bt 512), int8 on
+    the 2048-padded int8 pack (bt 256, nt 1024) at k = 10 + 6 (the re-rank
+    fetch)."""
+    from hnsw_tpu_torch.models.flat import quantize_rows
+    from hnsw_tpu_torch.ops import scan
+    from hnsw_tpu_torch.types import Corpus
+
+    b, d = 4096, DIM
+    live = live_rows(N)
+    for int8, name, n_pad, k, tol in ((False, "exact_topk_sweep", 31744, K,
+                                        1e-4),
+                                       (True, "int8_sweep_topk", 32768, K + 6,
+                                        1e-3)):
+        for metric in ("cosine", "euclidean", "dot"):
+            corpus = Corpus.from_array(data, metric=metric)
+            extra = n_pad - corpus.n_pad
+            vsq = torch.nn.functional.pad(corpus.sq_norms, (0, extra))
+            qf = corpus.pad_queries(data[:b])
+            if int8:
+                v8, vscale = quantize_rows(corpus.vectors)
+                v8 = torch.nn.functional.pad(v8, (0, 0, 0, extra))
+                vscale = torch.nn.functional.pad(vscale, (0, extra))
+                q8, qscale = quantize_rows(qf)
+                qmeta = torch.stack([qscale, (qf * qf).sum(1)], dim=1)
+                args = (v8, vscale, vsq, q8, qmeta, corpus.n)
+
+                def kern():
+                    return scan.int8_sweep_topk(*args, k=k, metric=metric,
+                                                bt=256, nt=1024)
+
+                def plain():
+                    return scan.int8_sweep_topk_plain(*args, k=k,
+                                                      metric=metric, nt=1024)
+            else:
+                vec = torch.nn.functional.pad(
+                    corpus.vectors.to(torch.bfloat16), (0, 0, 0, extra))
+                qb = qf.to(torch.bfloat16)
+                args = (vec, vsq, qb, corpus.n)
+
+                def kern():
+                    return scan.exact_topk_sweep(*args, k=k, metric=metric,
+                                                 bt=512)
+
+                def plain():
+                    return scan.exact_topk_sweep_plain(*args, k=k,
+                                                       metric=metric)
+            kd, kr = kern()
+            pd, pr = plain()
+            torch.cuda.synchronize()
+            check(bool((kr >= 0).all()) and bool((kr < corpus.n).all()),
+                  f"{name} {metric}: a row outside [0, n)")
+            # euclidean: compared as d^2, the domain where the f32 sum-order
+            # error is additive (sqrt amplifies it near d = 0)
+            p = 2 if metric == "euclidean" else 1
+            err = float((kd ** p - pd ** p).abs().max())
+            agree = _row_agreement(kr, pr)
+            check(err <= tol, f"{name} {metric}: distance error {err}")
+            check(agree >= 0.999, f"{name} {metric}: row agreement {agree}")
+            fields = dict(name=name, metric=metric,
+                          shape=f"B={b},N_pad={n_pad},D={d},k={k}",
+                          max_abs_err=err, tol=tol, row_agreement=agree,
+                          row_agreement_bar=0.999)
+            if metric == "cosine":
+                ms = time_ms(kern)
+                plain_ms = time_ms(plain, reps=3, warmup=1)
+                if int8:
+                    v8t = v8.T
+                    qs = qmeta[:, 0:1]
+
+                    def lib():
+                        dots = torch._int_mm(q8, v8t).float() * qs * vscale
+                        dist = 1.0 - dots / torch.sqrt(torch.clamp(
+                            qmeta[:, 1:2] * vsq, min=1e-12))
+                        return torch.topk(dist, k, dim=-1, largest=False)
+                    nbytes = live * d + b * d + live * 8 + b * 8 + b * k * 8
+                    bms, by = bound(nbytes, 2 * b * live * d, INT8_OPS_S)
+                else:
+                    q_sq = (qb.float() ** 2).sum(1, keepdim=True)
+
+                    def lib():
+                        dots = torch.matmul(qb, vec.T).float()
+                        dist = 1.0 - dots / torch.sqrt(torch.clamp(
+                            q_sq * vsq, min=1e-12))
+                        return torch.topk(dist, k, dim=-1, largest=False)
+                    nbytes = live * d * 2 + b * d * 2 + live * 4 + b * k * 8
+                    bms, by = bound(nbytes, 2 * b * live * d, BF16_OPS_S)
+                lib_ms = time_ms(lib, reps=10)
+                fields.update(kernel_ms=ms, plain_ms=plain_ms,
+                              library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                records[name] = dict(
+                    name=name, route="cuda",
+                    source="hnsw_tpu_torch/csrc/sweep.cu",
+                    replaces=("hnsw_tpu/ops/pallas_scan.py:654" if int8
+                              else "hnsw_tpu/ops/pallas_scan.py:123"),
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms)
+            else:
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], err)
+            say("kernel", **fields)
+
+
+def check_packed_kernel(torch, data, records):
+    """The packed int8 kernel against its plain version (cosine and dot) at
+    FlatIndex's shapes (the 2048-padded int8 pack, bt 256, nt 2048): bank
+    keys bit for bit, top-k rows by agreement (split banks may tie)."""
+    from hnsw_tpu_torch.models.flat import quantize_rows
+    from hnsw_tpu_torch.ops import scan
+    from hnsw_tpu_torch.types import Corpus
+
+    b, d, n_pad = 4096, DIM, 32768
+    live = live_rows(N)
+    for metric in ("cosine", "dot"):
+        corpus = Corpus.from_array(data, metric=metric)
+        extra = n_pad - corpus.n_pad
+        v8, vscale = quantize_rows(corpus.vectors)
+        v8 = torch.nn.functional.pad(v8, (0, 0, 0, extra))
+        vscale = torch.nn.functional.pad(vscale, (0, extra))
+        vsq = torch.nn.functional.pad(corpus.sq_norms, (0, extra))
+        qf = corpus.pad_queries(data[:b])
+        q8, qscale = quantize_rows(qf)
+        qmeta = torch.stack([qscale, (qf * qf).sum(1)], dim=1)
+        nvkey = -scan.int8_vkey(vscale, vsq, metric)
+        kd, kr = scan.int8_packed_bank(v8, nvkey, q8, corpus.n)
+        pd, pr = scan.int8_packed_bank_plain(v8, nvkey, q8, corpus.n)
+        torch.cuda.synchronize()
+        both = (kd < 1e29) & (pd < 1e29)
+        check(bool(((kd < 1e29) == (pd < 1e29)).all()),
+              f"int8_packed_topk {metric}: live bank entries differ")
+        # the two smallest keys of a bucket do not depend on the order the
+        # tiles are folded in; only a tied key's row may
+        err = float((kd - pd)[both].abs().max())
+        check(err == 0.0, f"int8_packed_topk {metric}: key error {err}")
+        args = (v8, vscale, vsq, q8, qmeta, corpus.n)
+        for k in (K + 6, K):
+            dk, rk = scan.int8_packed_topk(*args, k=k, metric=metric)
+            pk = torch.sort(pd, dim=-1, stable=True)
+            prow = torch.gather(pr, -1, pk.indices[:, :k])
+            agree = _row_agreement(rk, prow)
+            check(agree >= 0.999,
+                  f"int8_packed_topk {metric} k={k}: agreement {agree}")
+            say("kernel", name="int8_packed_topk", metric=metric,
+                shape=f"B={b},N_pad={n_pad},D={d},k={k}", max_abs_err=err,
+                tol=0, row_agreement=agree, row_agreement_bar=0.999)
+        if metric == "cosine":
+            ms = time_ms(lambda: scan.int8_packed_bank(v8, nvkey, q8,
+                                                       corpus.n))
+            plain_ms = time_ms(lambda: scan.int8_packed_bank_plain(
+                v8, nvkey, q8, corpus.n), reps=5)
+            v8t = v8.T
+            lib_ms = time_ms(lambda: torch.topk(
+                torch._int_mm(q8, v8t).float() * nvkey, K, dim=-1,
+                largest=False), reps=10)
+            bms, by = bound(live * d + b * d + live * 4 + b * 256 * 8,
+                            2 * b * live * d, INT8_OPS_S)
+            say("kernel", name="int8_packed_topk", kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+            records["int8_packed_topk"] = dict(
+                name="int8_packed_topk", route="cuda",
+                source="hnsw_tpu_torch/csrc/scan.cu",
+                replaces="hnsw_tpu/ops/pallas_scan.py:547",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -343,6 +523,156 @@ def main_path(torch, data):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the API path
+# ---------------------------------------------------------------------------
+
+def _rows_equal(torch, a, b) -> bool:
+    return bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def api_path(torch, data):
+    """The unified and stateful APIs at full width: flat indexes with each
+    scan kernel, the DOT guard, save / load in both formats, and a stateful
+    HNSW index grown by one wave insert."""
+    import tempfile
+
+    import numpy as np
+
+    import hnsw_tpu_torch as ht
+    from hnsw_tpu_torch.ops import hop, scan
+
+    kernels = (hop.hop_score, hop.hop_score_int8, scan.bucket_topk,
+               scan.int8_bucket_topk, scan.exact_topk_sweep,
+               scan.int8_sweep_topk, scan.int8_packed_topk)
+    for fn in kernels:
+        fn.launches = 0
+    qf = data[:4096]
+    _, truth = ht.build_index(data, "flat").search_batch(qf, K)
+
+    # (a) flat indexes through build_index, one per scan kernel route
+    packed = None
+    for p, s, fetch, bar in (("bf16", "sweep", None, 0.98),
+                             ("int8", "sweep", None, 0.98),
+                             ("int8", "sweep", 0, 0.95),
+                             ("int8", "packed", None, 0.98),
+                             ("int8", "packed", 0, 0.95)):
+        idx = ht.build_index(data, "flat", precision=p, scan_kernel=s,
+                             int8_fetch=fetch)
+        d, r = idx.search_batch(qf, K)
+        rec = recall(r, truth)
+        check(rec >= bar, f"flat {p}/{s}/fetch={fetch}: recall {rec} < {bar}")
+        check(bool(torch.isfinite(d).all()) and bool((r >= 0).all()),
+              f"flat {p}/{s}: non-finite distance or row -1")
+        rate = qps(torch, lambda: idx.search_batch(qf, K), len(qf))
+        say("api", family=f"flat_{p}_{s}", int8_fetch=fetch, batch=len(qf),
+            recall_at_10=rec, bar=bar, qps=rate)
+        if s == "packed" and fetch is None:
+            packed = (idx, r)
+
+    # (b) an unnormalized DOT corpus: "packed" must take the bucket kernel
+    scale = np.random.default_rng(SEED).uniform(50.0, 150.0, (len(data), 1))
+    dot_data = (data * scale).astype(np.float32)
+    _, dot_truth = ht.build_index(dot_data, "flat", metric="dot") \
+        .search_batch(dot_data[:4096], K)
+    before = (scan.int8_packed_topk.launches, scan.int8_bucket_topk.launches)
+    dot_idx = ht.build_index(dot_data, "flat", metric="dot", precision="int8",
+                             scan_kernel="packed")
+    _, r = dot_idx.search_batch(dot_data[:4096], K)
+    after = (scan.int8_packed_topk.launches, scan.int8_bucket_topk.launches)
+    check(after == (before[0], before[1] + 1),
+          f"DOT guard: launches (packed, bucket) {before} -> {after}")
+    rec = recall(r, dot_truth)
+    check(rec >= 0.98, f"DOT guard route: recall {rec}")
+    say("api", family="flat_int8_packed_dot_unnormalized",
+        kernel="int8_bucket_topk", recall_at_10=rec)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) save / load: the packed flat index as .npz, HNSW as .idx
+        idx, rows = packed
+        t0 = time.perf_counter()
+        path = ht.save_index(idx, f"{tmp}/flat_packed")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ht.load_index(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(back.corpus.device.type == "cuda" and back.scan_kernel ==
+              "packed", "loaded flat index: not on the card or not packed")
+        check(_rows_equal(torch, back.search_batch(qf, K)[1], rows),
+              "flat packed: rows differ after reload")
+        say("api", persist="npz", family="flat_int8_packed",
+            save_seconds=save_s, load_seconds=load_s, rows_identical=True)
+
+        t0 = time.perf_counter()
+        hnsw = ht.build_index(data, "hnsw", M=16)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        q = qf[:1024]
+        rows = hnsw.search_batch(q, K)[1]
+        t0 = time.perf_counter()
+        path = ht.save_index(hnsw, f"{tmp}/hnsw", format="dir")
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ht.load_index(path, stream_chunk_rows=8192)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(_rows_equal(torch, back.search_batch(q, K)[1], rows),
+              "hnsw: rows differ after reload")
+        say("api", persist="dir", family="hnsw", stream_chunk_rows=8192,
+            build_seconds=build_s, save_seconds=save_s, load_seconds=load_s,
+            rows_identical=True)
+        del hnsw, back
+
+        # (d) the stateful Index: build, search, one wave insert, save, load
+        n0 = len(data) - 1024
+        ids = [f"doc{i}" for i in range(len(data))]
+        ix = ht.Index(dimensions=DIM, index_type="hnsw", M=16)
+        for i in range(n0):
+            ix.add(ids[i], data[i], metadata={"row": i})
+        t0 = time.perf_counter()
+        check(ix.size == n0, "Index size after the first flush")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        hit = ix.search(data[5], 1)[0]
+        check(hit["id"] == "doc5" and hit["metadata"] == {"row": 5},
+              f"Index search: {hit}")
+        ix.add_batch([(ids[i], data[i], {"row": i})
+                      for i in range(n0, len(data))])
+        t0 = time.perf_counter()
+        check(ix.size == len(data), "Index size after the wave insert")
+        torch.cuda.synchronize()
+        insert_s = time.perf_counter() - t0
+        new_q = data[n0:]
+        _, new_truth = ht.build_index(data, "flat").search_batch(new_q, K)
+        _, r = ix._impl.search_batch(new_q, K)
+        rec = recall(r, new_truth)
+        self_first = float((r[:, 0].cpu() == torch.arange(n0, len(data)))
+                           .float().mean())
+        check(rec >= 0.90, f"recall of the inserted rows {rec} < 0.90")
+        hit = ix.search(data[n0 + 3], 1)[0]
+        check(hit["metadata"] == {"row": n0 + 3}, f"metadata: {hit}")
+        path = ix.save(f"{tmp}/stateful")
+        ix2 = ht.Index.load(path)
+        _, r2 = ix2._impl.search_batch(new_q, K)
+        check(_rows_equal(torch, r2, r), "Index: rows differ after reload")
+        same_ids = all([h["id"] for h in ix.search(data[i], K)]
+                       == [h["id"] for h in ix2.search(data[i], K)]
+                       for i in range(0, len(data), 997))
+        check(same_ids, "Index: ids differ after reload")
+        say("api", family="Index_hnsw", n_first=n0, wave=len(data) - n0,
+            build_seconds=build_s, insert_seconds=insert_s,
+            recall_at_10_inserted=rec, bar=0.90,
+            self_first_inserted=self_first, rows_identical_after_reload=True)
+
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    say("api", launches=json.dumps(launches))
+    for name in ("exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk",
+                 "int8_bucket_topk", "hop_score"):
+        check(launches[name] > 0, f"{name} was not launched on the API path")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -381,14 +711,18 @@ def main() -> int:
     records = {}
     check_hop_kernels(torch, records)
     check_scan_kernels(torch, data, records)
+    check_sweep_kernels(torch, data, records)
+    check_packed_kernel(torch, data, records)
     torch.cuda.empty_cache()
 
     launches = main_path(torch, data)
+    torch.cuda.empty_cache()
+    api_launches = api_path(torch, data)
     out = []
-    for name in ("hop_score", "hop_score_int8", "bucket_topk",
-                 "int8_bucket_topk"):
+    for name in KERNELS:
         rec = records[name]
-        rec["launches"] = launches[name]
+        rec["launches"] = launches.get(name, 0) + api_launches[name]
+        check(rec["launches"] > 0, f"{name} was not launched in phases 4-5")
         out.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -1,7 +1,7 @@
 """hnsw_tpu_torch: the PyTorch / CUDA port of hnsw_tpu for one NVIDIA H100.
 
-Laid out like ``hnsw_tpu`` (types, config, ops, models, models/hnsw, io), so
-each module's counterpart is found under the same name. It never imports JAX
+Laid out like ``hnsw_tpu`` (types, config, ops, models, models/hnsw, io,
+api), so each module's counterpart is found under the same name. It never imports JAX
 or the JAX package; the tests import both and hold the port against it.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
@@ -19,5 +19,33 @@ torch.backends.cudnn.allow_tf32 = False
 
 from hnsw_tpu_torch.config import DEFAULTS, Mode  # noqa: E402
 from hnsw_tpu_torch.types import Corpus, Metric, SearchResult  # noqa: E402
+from hnsw_tpu_torch.api import (  # noqa: E402
+    batch_search_knn,
+    build_best_for_size,
+    build_index,
+    filtered_search_knn,
+    index_exists,
+    index_info,
+    index_type,
+    load_index,
+    save_index,
+    search_knn,
+)
+from hnsw_tpu_torch.api.simple import Index  # noqa: E402
+from hnsw_tpu_torch.models import (  # noqa: E402
+    FAMILIES,
+    FlatIndex,
+    HNSWIndex,
+)
+from hnsw_tpu_torch.models.base import ANNIndex  # noqa: E402
 
-__all__ = ["Corpus", "Metric", "SearchResult", "Mode", "DEFAULTS"]
+__all__ = [
+    "Corpus", "Metric", "SearchResult", "Mode", "DEFAULTS",
+    "build_index", "build_best_for_size",
+    "search_knn", "batch_search_knn", "filtered_search_knn",
+    "index_info", "index_type",
+    "save_index", "load_index", "index_exists",
+    "Index",
+    "ANNIndex", "FlatIndex", "HNSWIndex",
+    "FAMILIES",
+]

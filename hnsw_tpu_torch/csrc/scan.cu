@@ -1,8 +1,9 @@
-// Fused flat scan with bucketed best-two selection (bf16 and int8).
+// Fused flat scans with bucketed best-two selection (bf16, int8, packed int8).
 //
 // Replaces the TPU kernels hnsw_tpu/ops/pallas_scan.py::pallas_bucket_topk
-// (_make_kernel_bucketed) and ::pallas_int8_bucket_topk
-// (_make_kernel_int8_bucketed).
+// (_make_kernel_bucketed), ::pallas_int8_bucket_topk
+// (_make_kernel_int8_bucketed) and ::pallas_int8_packed_topk
+// (_make_kernel_int8_packed).
 //
 // Contract. For every query q and corpus row r < n the kernel forms the dot
 // product on the tensor cores (bf16 x bf16 -> f32, or s8 x s8 -> s32 then
@@ -12,67 +13,46 @@
 //   int8: cosine -dot*vkey (vkey = vscale/|v|), euclidean
 //         vkey - 2*qscale*vscale*dot (vkey = |v|^2), dot -dot*vkey
 //         (vkey = vscale)
-// Rows >= n get the key BIG. Bucket c holds the rows r with r mod 128 == c;
-// for each (query, bucket) the kernel keeps the best two (key, row) pairs
-// and writes them as a bank [B, 256]: best keys in [:, :128], second keys in
-// [:, 128:]. The caller takes the top-k of the bank.
+//   packed int8 (cosine, dot): dot*nvkey + PACK_BIAS with nvkey the negated
+//         int8 vkey, a positive float whose int32 bits order like it; the low
+//         gbits bits are replaced by the row's 128-row group within its
+//         nt-row tile, so each key is unique in its tile and carries its row.
+// Rows >= n get the key BIG (packed: 0x7F000000). Bucket c holds the rows r
+// with r mod 128 == c; for each (query, bucket) the kernel keeps the best two
+// (key, row) pairs and writes them as a bank [B, 256]: best keys in
+// [:, :128], second keys in [:, 128:]. The caller takes the top-k of the
+// bank.
 //
 // Bound on the H100: tensor-core operations, 2*B*N_pad*D of them, plus a
 // per-element epilogue (the key and the best-two update). Design, kept simple
 // for this first version: a block owns 64 queries and walks the 128-row
-// corpus tiles of one split of the corpus. A 128-row tile holds exactly one
-// row of each bucket, so the running best two of each (query, bucket) pair
-// are updated by one insert per tile; they live in registers (32 pairs per
-// thread). Eight warps compute the 64 x 128 product tile with mma.sync
-// (m16n8k16 bf16, m16n8k32 s8) from 128-byte K chunks staged in shared
-// memory, the next chunk's global loads in flight during the current
-// chunk's products. The TPU's sequential corpus-tile axis becomes the loop
-// inside the block plus S splits across blocks; each split writes a partial
-// bank and bucket_merge folds the splits in order with the reference's
-// _merge_pair2 rule, so an earlier row wins a tie as it does there.
+// corpus tiles of one split of the corpus (the loop of tile.cuh). A 128-row
+// tile holds exactly one row of each bucket, so the running best two of each
+// (query, bucket) pair are updated by one insert per tile; they live in
+// registers (32 pairs per thread). The TPU's sequential corpus-tile axis
+// becomes the loop inside the block plus S splits across blocks; each split
+// writes a partial bank and bucket_merge folds the splits in order with the
+// reference's _merge_pair2 rule, so an earlier row wins a tie as it does
+// there.
+//
+// The packed kernel keeps, per (query, bucket), the two smallest packed int32
+// keys over the nt/128 sub-tiles of each nt-row tile: they are unique within
+// the tile, so that part is order-free. At each nt-row tile boundary it
+// decodes them (key bits with the group bits cleared, row from the group)
+// and folds them into the split's bank, which lives in the partial-bank
+// buffer, with _merge_pair2 in tile order, as the reference does per grid
+// step. Splits are aligned to nt-row tiles. Its keys are one exact int32 dot,
+// one __fmul_rn and one __fadd_rn, bit for bit those of the plain version.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile.cuh"
+
+using namespace tile;
 
 namespace {
 
-constexpr int BM = 64;          // queries per block
-constexpr int BN = 128;         // corpus rows per tile == buckets
-constexpr int KB = 128;         // bytes of K per staged chunk
-constexpr int LDS = KB + 16;    // padded smem row (36 words: conflict-free fragments)
-constexpr int LDC = BN + 4;     // padded f32 product-tile row
-constexpr int kThreads = 256;
 constexpr int kPairs = BM * BN / kThreads;   // (query, bucket) pairs per thread
-constexpr float BIG = 1e30f;
-constexpr int kSmem = (BM * LDC * 4 > (BM + BN) * LDS) ? BM * LDC * 4 : (BM + BN) * LDS;
-
-enum { COSINE = 0, EUCLIDEAN = 1, DOT = 2 };
-
-template <bool INT8>
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]);
-
-template <>
-__device__ __forceinline__ void mma<false>(float (&d)[4], const uint32_t (&a)[4],
-                                           const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// s8 products accumulate exactly in s32; the accumulator registers carry the
-// s32 bit patterns and are converted to f32 once per tile.
-template <>
-__device__ __forceinline__ void mma<true>(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-    int* di = reinterpret_cast<int*>(d);
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(di[0]), "+r"(di[1]), "+r"(di[2]), "+r"(di[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int INVALID_PACKED = 0x7F000000;   // sorts after every biased key
+constexpr float PACK_BIAS = 16384.f;
 
 // The reference's _merge_pair2 for one incoming candidate (x, row) whose row
 // is later than both kept rows: a tie with the best keeps the earlier best.
@@ -100,6 +80,9 @@ __device__ __forceinline__ void merge2(float& a1, int& ai1, float& a2, int& ai2,
     ai2 = mid <= o2 ? mi : oi2;
 }
 
+// The bucketed kernels keep the tile loop of tile.cuh inline: routed through
+// product_tiles (an epilogue lambda), the int8 kernel compiled to more
+// spills and ran 1.28x slower on the H100 in a same-call comparison.
 template <bool INT8>
 __global__ void __launch_bounds__(kThreads, 1)
 bucket_bank_kernel(const uint8_t* __restrict__ vectors, const float* __restrict__ vkey,
@@ -254,6 +237,80 @@ bucket_bank_kernel(const uint8_t* __restrict__ vectors, const float* __restrict_
     }
 }
 
+__device__ __forceinline__ void decode_packed(int p, int gmask, int tile_row0, int c, float& key,
+                                              int& row) {
+    const bool ok = p < INVALID_PACKED;
+    key = ok ? __int_as_float(p & ~gmask) : BIG;
+    row = ok ? tile_row0 + (p & gmask) * BN + c : -1;
+}
+
+// group = nt / 128 sub-tiles per nt-row tile; gbits = bits of the group id.
+__global__ void __launch_bounds__(kThreads, 1)
+packed_bank_kernel(const uint8_t* __restrict__ v8, const float* __restrict__ nvkey,
+                   const uint8_t* __restrict__ q8, float* __restrict__ part_d,
+                   int* __restrict__ part_r, int B, int N_pad, int D, int n, int group,
+                   int gbits, int splits) {
+    __shared__ __align__(16) uint8_t smem[kSmem];
+    const int tid = threadIdx.x;
+    const int q0 = blockIdx.x * BM;
+    const int split = blockIdx.y;
+    const int units = N_pad / (BN * group);
+    const int u_begin = (int)((long long)split * units / splits);
+    const int u_end = (int)((long long)(split + 1) * units / splits);
+    const int gmask = (1 << gbits) - 1;
+
+    const int c = tid & (BN - 1), qh = tid >> 7;
+    int p1[kPairs], p2[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) { p1[i] = INVALID_PACKED; p2[i] = INVALID_PACKED; }
+
+    product_tiles<true>(v8, q8, B, D, q0, u_begin * group, u_end * group, smem,
+                        [&](int tile, const float* Cs) {
+        const int gi = tile % group;
+        const int row = tile * BN + c;
+        const float nk = nvkey[row];
+        const bool live = row < n;
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+            const float dot = Cs[(qh + 2 * i) * LDC + c];
+            const float key = __fadd_rn(__fmul_rn(dot, nk), PACK_BIAS);
+            const int p = live ? ((__float_as_int(key) & ~gmask) | gi) : INVALID_PACKED;
+            if (p < p1[i]) {
+                p2[i] = p1[i]; p1[i] = p;
+            } else if (p < p2[i]) {
+                p2[i] = p;
+            }
+        }
+        if (gi != group - 1) return;
+        // an nt-row tile is complete: fold its best two into the split's bank
+        const int tile_row0 = (tile - gi) * BN;
+        const bool first = tile - gi == u_begin * group;
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+            const int q = q0 + qh + 2 * i;
+            float b1, b2;
+            int bi1, bi2;
+            decode_packed(p1[i], gmask, tile_row0, c, b1, bi1);
+            decode_packed(p2[i], gmask, tile_row0, c, b2, bi2);
+            p1[i] = INVALID_PACKED;
+            p2[i] = INVALID_PACKED;
+            if (q >= B) continue;
+            const long long base = ((long long)split * B + q) * (2 * BN);
+            float a1 = BIG, a2 = BIG;
+            int ai1 = -1, ai2 = -1;
+            if (!first) {
+                a1 = part_d[base + c]; a2 = part_d[base + BN + c];
+                ai1 = part_r[base + c]; ai2 = part_r[base + BN + c];
+            }
+            merge2(a1, ai1, a2, ai2, b1, bi1, b2, bi2);
+            part_d[base + c] = a1;
+            part_d[base + BN + c] = a2;
+            part_r[base + c] = ai1;
+            part_r[base + BN + c] = ai2;
+        }
+    });
+}
+
 __global__ void bucket_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_r,
                                     float* __restrict__ out_d, int* __restrict__ out_r, int B,
                                     int splits) {
@@ -308,6 +365,18 @@ extern "C" int bucket_bank_int8(const void* v8, const void* vkey, const void* vs
                                 void* stream) {
     return launch_bank(true, v8, vkey, vscale, q8, qscale, part_d, part_r, B, N_pad, D, n,
                        metric, splits, stream);
+}
+
+extern "C" int packed_bank_int8(const void* v8, const void* nvkey, const void* q8, void* part_d,
+                                void* part_r, int B, int N_pad, int D, int n, int group,
+                                int gbits, int splits, void* stream) {
+    if (B > 0 && splits > 0) {
+        const dim3 grid((B + BM - 1) / BM, splits);
+        packed_bank_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)v8, (const float*)nvkey, (const uint8_t*)q8, (float*)part_d,
+            (int*)part_r, B, N_pad, D, n, group, gbits, splits);
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" int bucket_merge(const void* part_d, const void* part_r, void* out_d, void* out_r,

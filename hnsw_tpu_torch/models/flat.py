@@ -3,12 +3,14 @@
 One product + masked top-k per corpus tile, streamed with a running merge so
 arbitrarily large corpora fit in fixed device memory. In f32 it is the recall
 ground truth every approximate family is measured against; its bf16 and int8
-forms are the fused bucketed scans of ``ops/scan.py``, which run their
-hand-written CUDA kernels when the corpus lies on the card.
+forms are the fused scans of ``ops/scan.py`` (bucketed, sweep or packed, by
+``scan_kernel``), which run their hand-written CUDA kernels when the corpus
+lies on the card.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
@@ -19,12 +21,10 @@ from hnsw_tpu_torch.models.base import ANNIndex
 from hnsw_tpu_torch.ops.distance import (BIG, as_bf16_f32, distances_from_dots,
                                          gather_score)
 from hnsw_tpu_torch.ops.topk import top_k_ascending
-from hnsw_tpu_torch.types import Corpus, Metric
+from hnsw_tpu_torch.types import Corpus, Metric, round_up
 
 # Corpus-tile row count for the streaming scan.
 DEFAULT_TILE = 32768
-
-_LATER = "is ported in a later slice of the port; this slice has 'bucket'"
 
 
 def exact_topk(vectors, v_sq, queries, *, k: int, n, metric: Metric,
@@ -114,9 +114,9 @@ def int8_topk(v8, vscale, vectors, v_sq, queries, n, *, k: int, fetch: int,
 
 class FlatIndex(ANNIndex):
     """Exact brute-force index (recall = 1.0 by construction with the
-    default f32 precision). precision="bf16" takes the fused bucketed scan
-    on the card (~1e-3 distance error); precision="int8" takes a quantized
-    coarse pass with exact re-rank (or coarse-only with int8_fetch=0)."""
+    default f32 precision). precision="bf16" takes the fused scan on the
+    card (~1e-3 distance error); precision="int8" takes a quantized coarse
+    pass with exact re-rank (or coarse-only with int8_fetch=0)."""
 
     family = "flat"
 
@@ -129,17 +129,20 @@ class FlatIndex(ANNIndex):
         # int8 path: how many coarse candidates the exact f32 re-rank
         # considers (None = auto, k+6); int8_fetch=0 selects coarse-only
         self.int8_fetch = int8_fetch
-        # "auto" | "bucket" | "sweep" | "packed": the fused selection kernel;
-        # "auto" resolves to "bucket"
+        # "auto" | "bucket" | "sweep" | "packed": the fused selection kernel
+        # of the bf16/int8 paths on the card. "bucket" keeps the best two
+        # rows of 128 buckets (exact up to 3-way bucket collisions); "sweep"
+        # keeps an exact running top-k; "packed" (int8 cosine/dot) runs the
+        # bucket selection on packed int32 keys; "auto" resolves to "bucket"
         self.scan_kernel = scan_kernel
         self._kernel_arrays = None        # bf16 scan: (vectors, v_sq)
         self._int8_arrays = None          # plain int8: (codes, scales)
         self._int8_kernel_arrays = None   # int8 scan: padded to INT8_NT
+        self._packed_ok = None            # DOT keys inside the packed bias
 
-    def _check_scan_kernel(self):
-        if self.scan_kernel not in ("auto", "bucket"):
-            raise NotImplementedError(
-                f"scan_kernel={self.scan_kernel!r} {_LATER}")
+    def _use_bucket(self) -> bool:
+        # "packed" is int8-specific; the bf16 path treats it as bucket
+        return self.scan_kernel in ("auto", "bucket", "packed")
 
     def _on_card(self) -> bool:
         return self.corpus.device.type == "cuda"
@@ -149,16 +152,36 @@ class FlatIndex(ANNIndex):
             self._int8_arrays = quantize_rows(self.corpus.vectors)
         return self._int8_arrays
 
-    def _int8_kernel(self, q, k: int, fetch: int):
-        """Quantized coarse scan (ops/scan.int8_bucket_topk) + exact f32
-        re-rank. fetch <= 0 selects COARSE-ONLY mode: distances are rebuilt
-        from the kernel's per-query monotone key and no row is gathered."""
-        from hnsw_tpu_torch.ops.scan import INT8_BT, INT8_NT, int8_bucket_topk
+    def _packed_key_bounded(self, v8, vscale) -> bool:
+        """Whether every packed DOT key stays inside the bias. The packed
+        scan orders keys by the int32 bits of dots*(-vscale) + PACK_BIAS,
+        which is right only while that sum is positive. By Cauchy-Schwarz
+        |q8 . v8| * vscale <= 127*sqrt(dim) * |v8|*vscale for every int8
+        query, so the bound below holds for any query. Cosine keys are
+        divided by |v| and stay below 127*sqrt(dim) by themselves; an
+        unnormalized DOT corpus can exceed the bias, and then the reference
+        returns wrong candidates (its pallas_scan.py:572). The port takes
+        the bucket kernel there instead."""
+        from hnsw_tpu_torch.ops.scan import PACK_BIAS
+        if self._packed_ok is None:
+            norms = torch.sqrt(torch.sum(v8.float() ** 2, dim=1)) * vscale
+            bound = 127.0 * math.sqrt(self.corpus.dim) * float(norms.max())
+            self._packed_ok = bound < PACK_BIAS
+        return self._packed_ok
 
-        self._check_scan_kernel()
+    def _int8_kernel(self, q, k: int, fetch: int):
+        """Quantized coarse scan (ops/scan: the bucket, packed or sweep
+        kernel) + exact f32 re-rank. fetch <= 0 selects COARSE-ONLY mode:
+        distances are rebuilt from the bucket/packed kernels' per-query
+        monotone key (the sweep kernel already emits distances) and no row
+        is gathered."""
+        from hnsw_tpu_torch.ops import scan
+
         if self._int8_kernel_arrays is None:
             v8, vscale = quantize_rows(self.corpus.vectors)
-            n_pad = ((self.corpus.n_pad + INT8_NT - 1) // INT8_NT) * INT8_NT
+            # the INT8_NT-aligned pack serves every kernel (2048 is a
+            # multiple of the sweep kernel's nt=1024)
+            n_pad = round_up(self.corpus.n_pad, scan.INT8_NT)
             extra = n_pad - self.corpus.n_pad
             v8 = torch.nn.functional.pad(v8, (0, 0, 0, extra)).contiguous()
             vs = torch.nn.functional.pad(vscale, (0, extra)).contiguous()
@@ -168,35 +191,53 @@ class FlatIndex(ANNIndex):
         v8, vs, vsq = self._int8_kernel_arrays
 
         b = q.shape[0]
-        bt, nt = INT8_BT, INT8_NT
-        bt = min(bt, max(((b + 7) // 8) * 8, 8))
-        b_pad = ((b + bt - 1) // bt) * bt
+        metric = self.corpus.metric
+        kname = "bucket" if self.scan_kernel == "auto" else self.scan_kernel
+        if kname == "packed" and (
+                metric not in (Metric.COSINE, Metric.DOT)
+                or (metric == Metric.DOT
+                    and not self._packed_key_bounded(v8, vs))):
+            kname = "bucket"   # no bias bound: euclidean, unbounded DOT
+        if kname in ("bucket", "packed"):
+            bt, nt = scan.INT8_BT, scan.INT8_NT
+            bt = min(bt, max(round_up(b, 8), 8))
+        else:
+            bt, nt = min(256, max(round_up(b, 8), 8)), scan.DEFAULT_NT
+        b_pad = round_up(b, bt)
         qf = torch.zeros((b_pad, q.shape[1]), dtype=torch.float32,
                          device=q.device)
         qf[:b] = q
         q8, qscale = quantize_rows(qf)
         qmeta = torch.stack([qscale, torch.sum(qf * qf, dim=1)], dim=1)
-        dk, cand = int8_bucket_topk(v8, vs, vsq, q8.contiguous(), qmeta,
-                                    self.corpus.n,
-                                    k=(fetch if fetch > 0 else k),
-                                    metric=self.corpus.metric, bt=bt, nt=nt)
+        if kname == "packed":
+            kern = scan.int8_packed_topk
+        else:
+            kern = scan.int8_bucket_topk if kname == "bucket" \
+                else scan.int8_sweep_topk
+        dk, cand = kern(v8, vs, vsq, q8.contiguous(), qmeta, self.corpus.n,
+                        k=(fetch if fetch > 0 else k), metric=metric, bt=bt,
+                        nt=nt)
         if fetch <= 0:
             dk, cand = dk[:b], cand[:b]
-            qs = qmeta[:b, 0:1]
-            q_sq = qmeta[:b, 1:2]
-            if self.corpus.metric == Metric.COSINE:
-                # key = -dots_i32 * vscale/|v|; dots_f = dots_i32*qs*vs
-                dist = 1.0 + dk * qs / torch.sqrt(torch.clamp(q_sq, min=1e-12))
-            elif self.corpus.metric == Metric.EUCLIDEAN:
-                # key = |v|^2 - 2*qs*vs*dots; d^2 = |q|^2 + key
-                dist = torch.sqrt(torch.clamp(dk + q_sq, min=0.0))
+            if kname in ("bucket", "packed"):
+                qs = qmeta[:b, 0:1]
+                q_sq = qmeta[:b, 1:2]
+                if metric == Metric.COSINE:
+                    # key = -dots_i32 * vscale/|v|; dots_f = dots_i32*qs*vs
+                    dist = 1.0 + dk * qs / torch.sqrt(torch.clamp(q_sq,
+                                                                  min=1e-12))
+                elif metric == Metric.EUCLIDEAN:
+                    # key = |v|^2 - 2*qs*vs*dots; d^2 = |q|^2 + key
+                    dist = torch.sqrt(torch.clamp(dk + q_sq, min=0.0))
+                else:
+                    dist = dk * qs
             else:
-                dist = dk * qs
+                dist = dk
             ok = (cand >= 0) & (dk < BIG)
             return torch.where(ok, dist, BIG), torch.where(ok, cand, -1)
         cand = cand[:b]
         d = gather_score(q, torch.clamp(cand, min=0), self.corpus.vectors,
-                         self.corpus.sq_norms, metric=self.corpus.metric,
+                         self.corpus.sq_norms, metric=metric,
                          valid=cand >= 0)
         dk, sel = top_k_ascending(d, k)
         rk = torch.where(dk < BIG, torch.gather(cand, -1, sel), -1)
@@ -205,8 +246,7 @@ class FlatIndex(ANNIndex):
     def _get_kernel_arrays(self):
         from hnsw_tpu_torch.ops.scan import DEFAULT_NT
         if self._kernel_arrays is None:
-            n_pad = ((self.corpus.n_pad + DEFAULT_NT - 1)
-                     // DEFAULT_NT) * DEFAULT_NT
+            n_pad = round_up(self.corpus.n_pad, DEFAULT_NT)
             extra = n_pad - self.corpus.n_pad
             vec = torch.nn.functional.pad(
                 self.corpus.vectors.to(torch.bfloat16), (0, 0, 0, extra))
@@ -215,19 +255,24 @@ class FlatIndex(ANNIndex):
         return self._kernel_arrays
 
     def _bf16_kernel(self, q, k: int):
-        """Bucketed bf16 scan (ops/scan.bucket_topk)."""
-        from hnsw_tpu_torch.ops.scan import DEFAULT_BT, bucket_topk
+        """Fused bf16 scan (ops/scan: bucket_topk, or exact_topk_sweep for
+        scan_kernel="sweep")."""
+        from hnsw_tpu_torch.ops.scan import (DEFAULT_BT, bucket_topk,
+                                             exact_topk_sweep)
 
-        self._check_scan_kernel()
         vec, vsq = self._get_kernel_arrays()
         b = q.shape[0]
-        bt = min(2 * DEFAULT_BT, max(((b + 7) // 8) * 8, 8))
-        b_pad = ((b + bt - 1) // bt) * bt
+        # the bucket kernel runs at bt=1024; the sweep kernel's k live tiles
+        # cap the reference at 512
+        bt_cap = 2 * DEFAULT_BT if self._use_bucket() else DEFAULT_BT
+        bt = min(bt_cap, max(round_up(b, 8), 8))
+        b_pad = round_up(b, bt)
         qp = torch.zeros((b_pad, q.shape[1]), dtype=torch.bfloat16,
                          device=q.device)
         qp[:b] = q.to(torch.bfloat16)
-        d, r = bucket_topk(vec, vsq, qp, self.corpus.n, k=k,
-                           metric=self.corpus.metric, bt=bt)
+        kern = bucket_topk if self._use_bucket() else exact_topk_sweep
+        d, r = kern(vec, vsq, qp, self.corpus.n, k=k,
+                    metric=self.corpus.metric, bt=bt)
         return d[:b], r[:b]
 
     def search_batch(self, queries, k: int, mode: Mode = Mode.BALANCED,

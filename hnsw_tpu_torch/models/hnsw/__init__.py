@@ -1,5 +1,6 @@
 """HNSW index family. Counterpart of ``hnsw_tpu/models/hnsw/__init__.py``:
-exact-candidate build (build.py) and batched fixed-beam search (search.py).
+exact-candidate build and wave insert (build.py) and batched fixed-beam
+search (search.py).
 Mode presets map to ef as in ``config.HNSW_EF``.
 """
 
@@ -13,8 +14,9 @@ import torch
 from hnsw_tpu_torch.config import DEFAULTS, Mode, ef_for
 from hnsw_tpu_torch.models.base import ANNIndex
 from hnsw_tpu_torch.models.common import as_corpus
-from hnsw_tpu_torch.models.hnsw.build import build_graph
-from hnsw_tpu_torch.models.hnsw.graph import HNSWGraph, empty_graph
+from hnsw_tpu_torch.models.hnsw.build import build_graph, insert_wave
+from hnsw_tpu_torch.models.hnsw.graph import (HNSWGraph, assign_levels,
+                                              empty_graph)
 from hnsw_tpu_torch.models.hnsw.search import (hnsw_search_batch,
                                                pack_neighbors,
                                                pack_neighbors_int8,
@@ -165,9 +167,43 @@ class HNSWIndex(ANNIndex):
         )
 
     def add_batch(self, data, ids=None, *, seed_offset: int = 0):
-        raise NotImplementedError(
-            "add_batch needs insert_wave, which a later slice of the port "
-            "brings")
+        """Append new vectors and connect them with a batched wave insert
+        (build.insert_wave). The corpus is repacked on its device, and every
+        cached shadow, pack and entry sample is dropped, as the grown corpus
+        and graph invalidate them all."""
+        data = np.atleast_2d(np.asarray(data, np.float32))
+        w = data.shape[0]
+        old_n = self.corpus.n
+        old = self.corpus.vectors[:old_n, : self.corpus.dim].cpu().numpy()
+        merged = np.concatenate([old, data], axis=0)
+        new_ids = None
+        if self.corpus.ids is not None or ids is not None:
+            olds = list(self.corpus.ids) if self.corpus.ids is not None else \
+                [str(i) for i in range(old_n)]
+            news = [str(i) for i in (ids if ids is not None
+                                     else range(old_n, old_n + w))]
+            new_ids = olds + news
+        self.corpus = Corpus.from_array(merged, metric=self.corpus.metric,
+                                        ids=new_ids, device=self.corpus.device)
+        self._sample_rows = None   # the entry sample must cover the new rows
+        self._vec_lp = None        # the bf16 shadow tracks the corpus (shape
+                                   # alone misses adds inside the pad slack)
+        self._nbr_pack = None      # adjacency changed: repack on next search
+        self._nbr_sq = None
+        self._nbr_scale = None
+        self._vsq_lp = None
+        self._proj = None          # the PCA basis tracks the grown corpus
+        new_rows = np.arange(old_n, old_n + w, dtype=np.int32)
+        new_levels = assign_levels(w, DEFAULTS["ml"],
+                                   DEFAULTS["seed"] + old_n + seed_offset)
+        if self.graph.n == 0:
+            self.graph = build_graph(
+                self.corpus, m=self.graph.m, m0=self.graph.m0,
+                ef_construction=self.graph.ef_construction)
+        else:
+            self.graph = insert_wave(self.graph, self.corpus, new_rows,
+                                     new_levels)
+        return self
 
     def index_info(self) -> Dict[str, Any]:
         info = self.graph.info()
@@ -255,4 +291,4 @@ def build_hnsw_index(
 
 
 __all__ = ["HNSWIndex", "build_hnsw_index", "HNSWGraph", "build_graph",
-           "hnsw_search_batch"]
+           "insert_wave", "hnsw_search_batch"]

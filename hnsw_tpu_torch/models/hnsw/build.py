@@ -1,5 +1,5 @@
-"""HNSW construction from exact candidate sets. Counterpart of
-``hnsw_tpu/models/hnsw/build.py`` for N <= LARGE_N.
+"""HNSW construction from exact candidate sets, and the incremental wave
+insert. Counterpart of ``hnsw_tpu/models/hnsw/build.py`` for N <= LARGE_N.
 
 For each layer the builder computes the EXACT kNN candidate set of every node
 (tiled product + top-k), applies the neighbour-selection heuristic (keep a
@@ -8,7 +8,9 @@ neighbour, then re-add pruned candidates to fill spare slots), and
 symmetrizes with a reverse-edge pass + heuristic re-prune. Upper layers
 repeat the recipe on the level-l subset; layers of at most HOST_LAYER_MAX
 nodes are built in numpy. Connectivity repair (repair.py) bridges the
-components an exact-kNN graph leaves on clustered data.
+components an exact-kNN graph leaves on clustered data. ``insert_wave``
+connects a wave of appended rows into an existing graph (the add path of
+``HNSWIndex.add_batch``).
 
 This path runs no TPU kernel in the reference: it is plain tensor code
 (products, sorts, a heuristic scan), and so is the port. The reference's
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from hnsw_tpu_torch.models.hnsw.graph import NONE, HNSWGraph, assign_levels
-from hnsw_tpu_torch.ops.distance import BIG, as_bf16_f32, distances_from_dots
+from hnsw_tpu_torch.ops.distance import (BIG, as_bf16_f32, distances_from_dots,
+                                         gather_score)
 from hnsw_tpu_torch.ops.topk import top_k_ascending
 from hnsw_tpu_torch.types import Corpus, Metric
 
@@ -102,6 +105,40 @@ def _pairwise_among_impl(vecs, sq, metric: Metric, precision="highest"):
     if metric == Metric.DOT:
         return -dots
     raise ValueError(metric)
+
+
+def _select_impl(node_vecs, cand_ids, vectors, v_sq, self_ids, *, cap,
+                 metric, keep_pruned=True, precision="highest"):
+    """Dedupe candidates (later duplicates and self dropped), score them
+    against the node, stable-sort ascending, pairwise-score, and select cap
+    with the heuristic. node_vecs [T, D], cand_ids [T, C] int32 (-1
+    invalid, may repeat), self_ids [T]. Returns [T, cap] int32."""
+    t, c = cand_ids.shape
+    dev = cand_ids.device
+    valid = (cand_ids >= 0) & (cand_ids != self_ids[:, None])
+    eq = cand_ids[:, :, None] == cand_ids[:, None, :]
+    earlier = torch.tril(torch.ones((c, c), dtype=torch.bool, device=dev),
+                         diagonal=-1)
+    dup = torch.any(eq & earlier & valid[:, None, :], dim=-1)
+    valid = valid & ~dup
+
+    d = gather_score(node_vecs, torch.clamp(cand_ids, min=0), vectors, v_sq,
+                     metric=metric, valid=valid)
+    d_sorted, ids_sorted = _sort_with(d, cand_ids)
+    ids_sorted = torch.where(d_sorted < BIG, ids_sorted, -1)
+    rows = torch.clamp(ids_sorted, min=0)
+    pair_d = _pairwise_among_impl(vectors[rows], v_sq[rows], metric, precision)
+    return _heuristic_impl(ids_sorted, d_sorted, pair_d, cap=cap,
+                           keep_pruned=keep_pruned)
+
+
+def select_from_candidates(node_vecs, cand_ids, vectors, v_sq, self_ids, *,
+                           cap: int, metric: Metric,
+                           keep_pruned: bool = True):
+    """Full selection pipeline for one node tile (see _select_impl)."""
+    return _select_impl(node_vecs, cand_ids, vectors, v_sq, self_ids,
+                        cap=cap, metric=Metric.coerce(metric),
+                        keep_pruned=keep_pruned)
 
 
 # ---------------------------------------------------------------------------
@@ -487,4 +524,159 @@ def build_graph(
         ef_construction=ef_construction,
         n=n,
         n_bridges=n_bridges,
+    )
+
+
+# ---------------------------------------------------------------------------
+# incremental wave insert
+# ---------------------------------------------------------------------------
+
+def _rows(x: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(dev)
+
+
+def insert_wave(graph: HNSWGraph, corpus: Corpus, new_rows: np.ndarray,
+                new_levels: np.ndarray) -> HNSWGraph:
+    """Connect a wave of already-packed new rows into an existing graph.
+
+    Per level l, top-down: batch-search the current graph for
+    ef_construction candidates (the layer-l adjacency as layer 0, the
+    layers above it as the hierarchy), add intra-wave candidates (an exact
+    wave x wave scan, so nodes of one wave see each other), select with the
+    heuristic, write forward edges, then re-prune every node that gained
+    the new node as a reverse candidate (at most 8 new ones per node).
+    Adjacency is edited on the host in numpy, as in the reference."""
+    from hnsw_tpu_torch.models.flat import exact_topk
+    from hnsw_tpu_torch.models.hnsw.search import hnsw_search_batch
+
+    w = len(new_rows)
+    if w == 0:
+        return graph
+    n_pad = corpus.n_pad
+    vectors, v_sq = corpus.vectors, corpus.sq_norms
+    metric = corpus.metric
+    dev = corpus.device
+
+    levels = graph.levels.cpu().numpy().astype(np.int32)
+    if levels.shape[0] != n_pad:
+        grown = np.full((n_pad,), NONE, np.int32)
+        grown[: levels.shape[0]] = levels
+        levels = grown
+    levels[new_rows] = new_levels
+    new_max = int(max(graph.max_level, new_levels.max()))
+
+    adj0 = graph.adj0.cpu().numpy().astype(np.int32)
+    adj_upper = graph.adj_upper.cpu().numpy().astype(np.int32)
+    if adj0.shape[0] != n_pad or adj_upper.shape[0] < new_max:
+        a0 = np.full((n_pad, graph.m0), NONE, np.int32)
+        a0[: adj0.shape[0]] = adj0
+        adj0 = a0
+        au = np.full((new_max, n_pad, graph.m), NONE, np.int32)
+        if adj_upper.size:
+            au[: adj_upper.shape[0], : adj_upper.shape[1]] = adj_upper
+        adj_upper = au
+
+    # pad the wave to a power-of-two bucket (pad rows carry id -1 / level
+    # -1 and are excluded from every write by the at_level mask)
+    wp = _pow2_at_least(max(w, 1), 8)
+    rows_pad = np.full(wp, NONE, np.int32)
+    rows_pad[:w] = new_rows
+    levels_pad = np.full(wp, NONE, np.int32)
+    levels_pad[:w] = new_levels
+
+    q = vectors[_rows(np.maximum(rows_pad, 0), dev)]
+    ef_c = graph.ef_construction
+
+    for l in range(new_max, -1, -1):
+        at_level = levels_pad >= l
+        if not at_level.any():
+            continue
+        cap = graph.m0 if l == 0 else graph.m
+        cands = []
+        if graph.n > 0 and graph.entry >= 0:
+            adj_l = torch.tensor(adj0 if l == 0 else adj_upper[l - 1],
+                                 device=dev)
+            upper = torch.tensor(adj_upper[l:], device=dev) if l < new_max \
+                else torch.zeros((0, n_pad, graph.m), dtype=torch.int32,
+                                 device=dev)
+            # euclidean's norm formula cancels at bf16-class precision: the
+            # same auto policy as HNSWIndex.search_batch
+            prec = "default" if metric == Metric.COSINE else "highest"
+            _, i_c = hnsw_search_batch(
+                vectors, v_sq, adj_l, upper,
+                torch.full((wp,), graph.entry, dtype=torch.int32, device=dev),
+                q, k=ef_c, ef=ef_c, metric=metric, precision=prec)
+            cands.append(i_c.cpu().numpy())
+        # intra-wave candidates at this level
+        wave_members = np.nonzero(at_level)[0]
+        if len(wave_members) > 1:
+            wrows = rows_pad[wave_members]
+            wq = _pow2_at_least(len(wrows), 8)
+            wrows_pad = np.zeros(wq, np.int32)
+            wrows_pad[: len(wrows)] = wrows
+            sub = vectors[_rows(wrows_pad, dev)]
+            mask = (torch.arange(wq, device=dev) < len(wrows))[:, None]
+            sub = torch.where(mask, sub, 0.0)
+            sub_sq = torch.sum(sub * sub, dim=-1)
+            kq = min(cap + 1, wq)
+            _, loc = exact_topk(sub, sub_sq, q, k=kq, n=len(wrows),
+                                metric=metric)
+            loc = loc.cpu().numpy()
+            cands.append(np.where(loc >= 0, wrows_pad[np.maximum(loc, 0)],
+                                  NONE))
+        if not cands:
+            continue
+        cand = np.concatenate(cands, axis=1).astype(np.int32)
+        sel = select_from_candidates(
+            q, torch.tensor(cand, device=dev), vectors, v_sq,
+            torch.tensor(rows_pad, device=dev), cap=cap,
+            metric=metric).cpu().numpy()
+        target = adj0 if l == 0 else adj_upper[l - 1]
+        target[rows_pad[at_level]] = sel[at_level]
+
+        # reverse repair: every selected neighbour gains the new node as a
+        # candidate; re-prune the affected nodes at cap
+        pairs_dst = sel[at_level].reshape(-1)
+        pairs_src = np.repeat(rows_pad[at_level], cap)
+        keep = pairs_dst >= 0
+        pairs_dst, pairs_src = pairs_dst[keep], pairs_src[keep]
+        if len(pairs_dst):
+            extra_cap = 8
+            order = np.lexsort((np.arange(len(pairs_dst)), pairs_dst))
+            ds, ss = pairs_dst[order], pairs_src[order]
+            first = np.searchsorted(ds, ds, side="left")
+            pos = np.arange(len(ds)) - first
+            keep2 = pos < extra_cap
+            affected = np.unique(ds)
+            na = len(affected)
+            ap = _pow2_at_least(na, 8)
+            aff_pad = np.full(ap, NONE, np.int32)
+            aff_pad[:na] = affected
+            extra = np.full((ap, extra_cap), NONE, np.int32)
+            rowi = np.searchsorted(affected, ds[keep2])
+            extra[rowi, pos[keep2]] = ss[keep2]
+            cur = np.full((ap, cap), NONE, np.int32)
+            cur[:na] = target[affected]
+            cand2 = np.concatenate([cur, extra], axis=1)
+            node_vecs = vectors[_rows(np.maximum(aff_pad, 0), dev)]
+            sel2 = select_from_candidates(
+                node_vecs, torch.tensor(cand2, device=dev), vectors, v_sq,
+                torch.tensor(aff_pad, device=dev), cap=cap, metric=metric)
+            target[affected] = sel2.cpu().numpy()[:na]
+
+    # entry point: the highest-level node, as the reference's insert keeps
+    entry = graph.entry
+    if new_max > graph.max_level or entry < 0:
+        entry = int(new_rows[new_levels.argmax()])
+
+    return HNSWGraph(
+        levels=torch.from_numpy(levels).to(dev),
+        adj0=torch.from_numpy(adj0).to(dev),
+        adj_upper=torch.from_numpy(adj_upper).to(dev),
+        entry=int(entry),
+        max_level=new_max,
+        m=graph.m, m0=graph.m0,
+        ef_construction=graph.ef_construction,
+        n=int(graph.n + w),
+        n_bridges=graph.n_bridges,
     )

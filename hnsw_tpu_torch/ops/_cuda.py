@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into a shared library under
-``hnsw_tpu_torch/_build/``, at first use. The sources are hashed, so an edit
-rebuilds and an unchanged tree reuses the library. All sources are compiled
+``hnsw_tpu_torch/_build/``, at first use. The sources and the shared headers
+(``csrc/*.cuh``) are hashed, so an edit rebuilds and an unchanged tree reuses
+the library. All sources are compiled
 at once, one ``nvcc`` process each. The libraries are loaded with ``ctypes``;
 every pointer and the stream are passed as ``c_void_p``. Each C entry returns
 ``cudaGetLastError()`` after its launch, and ``check`` raises on a non-zero
@@ -26,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("hop.cu", "scan.cu")
+SOURCES = ("hop.cu", "scan.cu", "sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,8 +49,21 @@ SIGNATURES = {
         # v8, vkey, vscale, q8, qscale, part_d, part_r, B, N_pad, D, n,
         # metric, splits, stream
         "bucket_bank_int8": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+        # v8, nvkey, q8, part_d, part_r, B, N_pad, D, n, group, gbits,
+        # splits, stream
+        "packed_bank_int8": (P, P, P, P, P, I, I, I, I, I, I, I, P),
         # part_d, part_r, out_d, out_r, B, splits, stream
         "bucket_merge": (P, P, P, P, I, I, P),
+    },
+    "sweep.cu": {
+        # vectors, v_sq, queries, part_d, part_r, B, N_pad, D, n, k, metric,
+        # splits, stream
+        "sweep_topk_bf16": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+        # v8, v_sq, vscale, q8, qmeta, part_d, part_r, B, N_pad, D, n, k,
+        # metric, splits, stream
+        "sweep_topk_int8": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+        # part_d, part_r, out_d, out_r, B, k, splits, stream
+        "sweep_merge": (P, P, P, P, I, I, I, P),
     },
 }
 
@@ -67,8 +81,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> Path:
-    digest = hashlib.sha256((CSRC / src).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / src).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(src).stem}_{digest}.so"
 
 

@@ -125,6 +125,48 @@ class Corpus:
                    metric=Metric.coerce(metric), ids=id_table)
 
     @classmethod
+    def from_array_streamed(
+        cls,
+        data,
+        *,
+        metric: "Metric | str" = Metric.COSINE,
+        ids: Optional[Sequence[Any]] = None,
+        pad_rows_to: int = SUBLANE,
+        chunk_rows: int = 65536,
+        device=None,
+    ) -> "Corpus":
+        """Pack a host array (e.g. a numpy memmap) into the device layout
+        WITHOUT materializing a full host copy: rows are padded and copied
+        to `device` in `chunk_rows` chunks, straight into the device matrix.
+        Transient host memory is one chunk."""
+        if getattr(data, "ndim", 2) != 2:
+            raise ValueError(f"expected [n, dim] array, got {data.shape}")
+        n, dim = data.shape
+        if n <= chunk_rows:
+            return cls.from_array(np.asarray(data, np.float32), metric=metric,
+                                  ids=ids, pad_rows_to=pad_rows_to,
+                                  device=device)
+        dev = resolve_device(device)
+        n_pad = round_up(n, pad_rows_to)
+        d_pad = round_up(dim, LANE)
+        vectors = torch.empty((n_pad, d_pad), dtype=torch.float32, device=dev)
+        for s in range(0, n_pad, chunk_rows):
+            rows = min(chunk_rows, n_pad - s)
+            block = np.zeros((rows, d_pad), np.float32)
+            real = max(min(n - s, rows), 0)
+            if real:
+                block[:real, :dim] = data[s: s + real]
+            vectors[s: s + rows] = torch.from_numpy(block).to(dev)
+        sq_norms = torch.sum(vectors * vectors, dim=-1)
+        id_table = None
+        if ids is not None:
+            if len(ids) != n:
+                raise ValueError(f"{len(ids)} ids for {n} vectors")
+            id_table = np.asarray([str(i) for i in ids], dtype=object)
+        return cls(vectors=vectors, sq_norms=sq_norms, n=n, dim=dim,
+                   metric=Metric.coerce(metric), ids=id_table)
+
+    @classmethod
     def from_pairs(cls, pairs: Sequence[tuple], **kw) -> "Corpus":
         """Build from a sequence of ``[id, vector]`` pairs."""
         ids = [p[0] for p in pairs]

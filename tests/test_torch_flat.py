@@ -5,8 +5,12 @@ The f32 scan is exact on both sides: rows must be identical and distances
 agree to 1e-5 (f32 sums in another order). The bf16 and int8 forms are
 approximate by design and are held to the reference tests' recall bars
 (test_pallas_scan.py, test_pallas_hop.py): >= 0.98 for bf16 and for int8
-with re-rank, >= 0.95 for int8 coarse-only.
+with re-rank, >= 0.95 for int8 coarse-only. The kernel routes that the card
+takes (every scan_kernel) run here through the kernels' plain versions and
+are held against the JAX FlatIndex's Pallas routes in interpret mode.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -97,11 +101,87 @@ def test_low_precision_recall_bars(precision, fetch, bar):
     np.testing.assert_allclose(kd.numpy()[:, 0], de[:, 0], atol=atol)
 
 
-def test_unported_scan_kernels_raise_on_the_kernel_path():
-    t = FlatIndex(Corpus.from_array(make_unit(50, 16), device="cpu"),
-                  precision="bf16", scan_kernel="sweep")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t._bf16_kernel(t.corpus.pad_queries(make_unit(2, 16)), 5)
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Run the JAX FlatIndex's kernel routes here: its Pallas scans in
+    interpret mode (looked up at call time by FlatIndex), and its bf16 route
+    switched on (it is taken only on a TPU backend)."""
+    from hnsw_tpu.ops import pallas_scan as jscan
+    for name in ("pallas_bucket_topk", "pallas_exact_topk",
+                 "pallas_int8_bucket_topk", "pallas_int8_topk",
+                 "pallas_int8_packed_topk"):
+        monkeypatch.setattr(jscan, name, functools.partial(
+            getattr(jscan, name), interpret=True))
+    monkeypatch.setattr(JFlatIndex, "_pallas_ready", lambda self, k: True)
+
+
+def _same_rows(jd, jr, td, tr, metric, data, atol):
+    jd, jr, td, tr = (np.asarray(x) for x in (jd, jr, td, tr))
+    same = (jr == tr).all(axis=1)
+    assert same.mean() >= 0.95, same.mean()
+    if metric == "euclidean":
+        scale = 2 * float((data * data).sum(1).max())
+        td, jd = td ** 2 / scale, jd ** 2 / scale
+    np.testing.assert_allclose(td[same], jd[same], atol=atol)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision,scan_kernel", [
+    (p, s) for p in ("bf16", "int8")
+    for s in ("auto", "bucket", "sweep", "packed")])
+def test_scan_kernel_dispatch_matches_reference(pallas_interpret, precision,
+                                                scan_kernel, metric):
+    """Every scan_kernel x precision x metric routes as in the reference
+    (bf16: sweep, else bucket; int8: sweep, packed for cosine/dot, else
+    bucket; re-rank and coarse-only), and the route's result matches the
+    JAX FlatIndex's through its Pallas kernels. Distances: f32 re-rank
+    1e-5; bf16 keys and int8 coarse keys differ only in f32 sum order."""
+    data = make_unit(300, 32, seed=15)
+    j, t = _pair(data, metric, precision=precision, scan_kernel=scan_kernel)
+    q = data[:24] + 0.01
+    tq = t.corpus.pad_queries(q)
+    if precision == "bf16":
+        jd, jr = j.search_batch(q, 10)
+        td, tr = t._bf16_kernel(tq, 10)
+        _same_rows(jd, jr, td, tr, metric, data, 1e-5)
+    else:
+        jq = j.corpus.pad_queries(q)
+        for fetch in (16, 0):
+            jd, jr = j._int8_pallas(jq, 10, fetch)
+            td, tr = t._int8_kernel(tq, 10, fetch)
+            _same_rows(jd, jr, td, tr, metric, data, 1e-5)
+    assert tr.shape == (24, 10) and (tr.numpy() >= 0).all()
+
+
+def test_packed_dot_guard_takes_the_bucket_kernel(pallas_interpret):
+    """Deliberate divergence (ROADMAP §C): on an unnormalized DOT corpus the
+    packed key dots*(-vscale) + PACK_BIAS goes negative, its int32 bits
+    then order backwards, and the reference's packed route returns wrong
+    candidates. The port checks the stated bound and takes the bucket
+    kernel, whose rows it then matches."""
+    rng = np.random.default_rng(16)
+    # 16 rows per bucket, so the inverted order picks the wrong best two
+    data = (100.0 * rng.standard_normal((2048, 32))).astype(np.float32)
+    q = data[:24]
+    _, exact = brute_force_knn(data, q, 10, "dot")
+    j, t = _pair(data, "dot", precision="int8", scan_kernel="packed")
+    jb = JFlatIndex(JCorpus.from_array(data, metric="dot"), precision="int8",
+                    scan_kernel="bucket")
+    jq, tq = j.corpus.pad_queries(q), t.corpus.pad_queries(q)
+    for fetch in (16, 0):
+        td, tr = t._int8_kernel(tq, 10, fetch)
+        bd, br = jb._int8_pallas(jq, 10, fetch)
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(br))
+        assert recall(tr.numpy(), exact) >= 0.95
+        _, pr = j._int8_pallas(jq, 10, fetch)
+        assert recall(np.asarray(pr), exact) < 0.1
+    assert t._packed_ok is False
+    # a unit-norm DOT corpus stays inside the bound and keeps "packed"
+    unit = FlatIndex(Corpus.from_array(make_unit(300, 32), metric="dot",
+                                       device="cpu"),
+                     precision="int8", scan_kernel="packed")
+    unit._int8_kernel(unit.corpus.pad_queries(q[:2] / 100.0), 5, 0)
+    assert unit._packed_ok is True
 
 
 def test_build_flat_index_defaults_to_the_card():

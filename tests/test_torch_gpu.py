@@ -129,3 +129,97 @@ def test_main_path_on_the_card_matches_the_plain_path(cuda_device):
         idx = FlatIndex(gpu.corpus, precision=precision, int8_fetch=fetch)
         _, r = idx.search_batch(q, 10)
         assert recall(r, er) >= bar
+
+
+def _int8_inputs(v, q, vsq):
+    v8, vs = quantize_rows(v)
+    q8, qs = quantize_rows(q)
+    qmeta = torch.stack([qs, (q * q).sum(1)], dim=1)
+    return v8, vs, vsq, q8, qmeta
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_sweep_kernels_match_plain_versions(metric, cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(2)
+    for b, n_pad, d, n, k in ((70, 1024, 256, 1000, 10),
+                              (300, 4096, 768, 4000, 32),
+                              (8, 128, 128, 5, 10)):
+        v = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g),
+                                          dim=1)
+        q = v[torch.randint(0, n, (b,), generator=g)] + 0.01
+        vsq = (v * v).sum(1)
+        args = [t.to(cuda_device) for t in (v.to(torch.bfloat16), vsq,
+                                            q.to(torch.bfloat16))]
+        before = scan.exact_topk_sweep.launches
+        kd, kr = scan.exact_topk_sweep(*args, n, k=k, metric=metric, bt=b,
+                                       nt=128)
+        assert scan.exact_topk_sweep.launches == before + 1
+        pd, pr = scan.exact_topk_sweep_plain(*args, n, k=k, metric=metric,
+                                             nt=128)
+        p = 2 if metric == "euclidean" else 1
+        np.testing.assert_allclose((kd.cpu() ** p)[pd.cpu() < 1e29],
+                                   (pd.cpu() ** p)[pd.cpu() < 1e29],
+                                   atol=KEY_TOL)
+        assert (kr == pr).float().mean() >= 0.99
+        assert ((kr.cpu() == -1) == (pr.cpu() == -1)).all()
+
+        args = [t.to(cuda_device) for t in _int8_inputs(v, q, vsq)]
+        kd, kr = scan.int8_sweep_topk(*args, n, k=k, metric=metric, bt=b,
+                                      nt=128)
+        pd, pr = scan.int8_sweep_topk_plain(*args, n, k=k, metric=metric,
+                                            nt=128)
+        np.testing.assert_allclose(kd.cpu(), pd.cpu(), rtol=1e-6, atol=1e-6)
+        assert (kr == pr).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("metric", ["cosine", "dot"])
+def test_packed_kernel_matches_plain_version(metric, cuda_device):
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for b, n_pad, d, n, nt in ((70, 1024, 256, 1000, 256),
+                               (300, 8192, 768, 8000, 2048),
+                               (8, 256, 128, 5, 256)):
+        v = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g),
+                                          dim=1)
+        q = v[torch.randint(0, n, (b,), generator=g)]
+        v8, vs, vsq, q8, qmeta = [t.to(cuda_device) for t in
+                                  _int8_inputs(v, q, (v * v).sum(1))]
+        nvkey = -scan.int8_vkey(vs, vsq, metric)
+        before = scan.int8_packed_topk.launches
+        kd, kr = scan.int8_packed_bank(v8, nvkey, q8, n, nt=nt)
+        assert scan.int8_packed_topk.launches == before + 1
+        pd, pr = scan.int8_packed_bank_plain(v8, nvkey, q8, n, nt=nt)
+        # the best two keys of a bucket do not depend on the fold order
+        torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+        live = pd < 1e29
+        assert (kr == pr)[live].float().mean() >= 0.99
+        dk, rk = scan.int8_packed_topk(v8, vs, vsq, q8, qmeta, n, k=10,
+                                       metric=metric, bt=b, nt=nt)
+        assert ((rk >= 0) & (rk < n)).all() or n < 10
+
+
+def test_flat_scan_kernels_on_the_card(cuda_device):
+    """Every scan_kernel route of FlatIndex launches its kernel on the card
+    and answers at the reference tests' recall bars; an unnormalized DOT
+    corpus takes the bucket kernel instead of "packed"."""
+    data = generate_vectors(3000, 128, distribution="embedding",
+                            num_clusters=16, seed=4)
+    q = data[:256]
+    corpus = Corpus.from_array(data, device=cuda_device)
+    _, er = FlatIndex(corpus).search_batch(q, 10)
+    for precision, kernel, fetch, counter, bar in (
+            ("bf16", "sweep", None, scan.exact_topk_sweep, 0.98),
+            ("int8", "sweep", None, scan.int8_sweep_topk, 0.98),
+            ("int8", "sweep", 0, scan.int8_sweep_topk, 0.95),
+            ("int8", "packed", None, scan.int8_packed_topk, 0.98),
+            ("int8", "packed", 0, scan.int8_packed_topk, 0.95)):
+        idx = FlatIndex(corpus, precision=precision, scan_kernel=kernel,
+                        int8_fetch=fetch)
+        before = counter.launches
+        _, r = idx.search_batch(q, 10)
+        assert counter.launches == before + 1
+        assert recall(r, er) >= bar
+    big = Corpus.from_array(100.0 * data, metric="dot", device=cuda_device)
+    before = (scan.int8_packed_topk.launches, scan.int8_bucket_topk.launches)
+    FlatIndex(big, precision="int8", scan_kernel="packed").search_batch(q, 10)
+    assert (scan.int8_packed_topk.launches,
+            scan.int8_bucket_topk.launches) == (before[0], before[1] + 1)

@@ -11,7 +11,11 @@ CPU, plus the port's package rules.
 2. Build parity: the same levels, a mean adj0 row-set overlap of >= 0.98 at
    build_precision="highest" and >= 0.95 at "bf16", and recall no worse
    than the JAX-built graph's minus 0.01.
-3. Package rules: no JAX and nothing of hnsw_tpu in the port, and no
+3. Wave-insert parity: add_batch on a JAX-built graph carried across, against
+   the JAX add_batch on the same graph: the same levels and entry, a mean
+   adjacency row-set overlap of >= 0.98, and the JAX tests' recall bars
+   after insert (tests/test_hnsw.py:85-128).
+4. Package rules: no JAX and nothing of hnsw_tpu in the port, and no
    silent fall back to the CPU.
 """
 
@@ -27,6 +31,7 @@ import torch
 import jax.numpy as jnp
 
 from hnsw_tpu.models.hnsw import HNSWIndex as JHNSWIndex
+from hnsw_tpu.models.hnsw import build_hnsw_index as j_build_hnsw_index
 from hnsw_tpu.models.hnsw import build as jbuild
 from hnsw_tpu.models.hnsw.build import build_graph as j_build_graph
 from hnsw_tpu.types import Corpus as JCorpus
@@ -36,7 +41,7 @@ from hnsw_tpu_torch.models.hnsw import HNSWIndex, build_hnsw_index
 from hnsw_tpu_torch.models.hnsw import build as tbuild
 from hnsw_tpu_torch.models.hnsw.build import build_graph
 from hnsw_tpu_torch.types import Corpus
-from tests.conftest import brute_force_knn, make_clustered
+from tests.conftest import brute_force_knn, make_clustered, make_unit
 from tests.torch_support import recall
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -110,8 +115,6 @@ def test_state_round_trip_and_shape_check(jax_built):
     with pytest.raises(ValueError):
         convert.from_reference(data[:-9], state, metric="cosine",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="insert_wave"):
-        tidx.add_batch(data[:3])
 
 
 def _overlap(a, b):
@@ -140,6 +143,103 @@ def test_build_parity(jax_built, precision, bar):
     _, jr = JHNSWIndex(jc, jg).search_batch(q, 10, "fast")
     _, tr = HNSWIndex(tc, tg).search_batch(q, 10, "fast")
     assert recall(tr.numpy(), exact) >= recall(np.asarray(jr), exact) - 0.01
+
+
+def _insert_pair(data, n0, waves, m=8):
+    """JAX-built graph on data[:n0], carried across; both packages then add
+    the given waves of rows."""
+    j = j_build_hnsw_index(data[:n0], M=m)
+    t = convert.from_reference(data[:n0], j.to_state(), metric="cosine",
+                               device="cpu")
+    for lo, hi in waves:
+        j.add_batch(data[lo:hi])
+        t.add_batch(data[lo:hi])
+    return j, t
+
+
+def _graph_parity(j, t, n):
+    np.testing.assert_array_equal(t.graph.levels.numpy(),
+                                  np.asarray(j.graph.levels))
+    assert (t.graph.entry, t.graph.max_level, t.graph.n) == \
+        (j.graph.entry, j.graph.max_level, j.graph.n) and t.graph.n == n
+    ov = _overlap(t.graph.adj0.numpy()[:n], np.asarray(j.graph.adj0)[:n])
+    assert ov >= 0.98, ov
+    levels = t.graph.levels.numpy()
+    for l in range(t.graph.max_level):
+        members = np.nonzero(levels >= l + 1)[0]
+        if len(members) < 2:
+            continue
+        a = t.graph.adj_upper[l].numpy()[members]
+        b = np.asarray(j.graph.adj_upper)[l][members]
+        # a node with no edge on this layer in both graphs agrees
+        both_empty = ((a < 0).all(1) & (b < 0).all(1)).sum()
+        ov = (_overlap(a, b) * len(members) + both_empty) / len(members)
+        assert ov >= 0.98, (l, ov)
+
+
+def test_add_batch_matches_reference():
+    data = make_unit(600, 32, seed=5)
+    j, t = _insert_pair(data, 400, [(400, 600)])
+    _graph_parity(j, t, 600)
+    q = data[:16]
+    _, exact = brute_force_knn(data, q, 10, "cosine")
+    _, jr = j.search_batch(q, 10, ef=100)
+    _, tr = t.search_batch(q, 10, ef=100)
+    assert recall(tr.numpy(), exact) >= 0.9
+    assert recall(tr.numpy(), exact) >= recall(np.asarray(jr), exact) - 0.01
+    # new nodes are findable
+    hit = t.search(data[450], 1)[0]
+    assert int(hit["id"]) == 450 and hit["distance"] < 1e-3
+
+
+def test_many_successive_small_waves():
+    """The add-heavy pattern of the stateful API, as tests/test_hnsw.py runs
+    it: 15 waves of 32 keep the graph searchable at its recall bar. (The
+    JAX side is left out here: it recompiles for every wave.)"""
+    data = make_unit(640, 32, seed=11)
+    t = build_hnsw_index(data[:160], M=8, device="cpu")
+    for start in range(160, 640, 32):
+        t.add_batch(data[start:start + 32])
+    assert t.graph.n == 640
+    q = data[::40]
+    _, exact = brute_force_knn(data, q, 10, "cosine")
+    _, rows = t.search_batch(q, 10, ef=128)
+    assert recall(rows.numpy(), exact) >= 0.92
+
+
+def test_add_batch_within_pad_slack_and_with_ids():
+    """An add small enough not to grow N_pad must still drop the cached bf16
+    shadow and pack (else new rows score against stale rows and vanish);
+    string ids grow with the corpus."""
+    data = make_unit(1008, 32, seed=7)
+    t = build_hnsw_index(data[:1001], M=8, device="cpu",
+                         ids=[f"v{i}" for i in range(1001)])
+    t.search(data[0], 1)                      # builds the shadow and pack
+    n_pad = t.corpus.n_pad
+    t.add_batch(data[1001:], ids=[f"new{i}" for i in range(7)])
+    assert t.corpus.n_pad == n_pad and t.graph.n == 1008
+    hits = t.search(data[1003], 1)
+    assert hits[0]["id"] == "new2" and hits[0]["distance"] < 1e-3
+    assert t.corpus.device.type == "cpu"
+
+
+def test_select_from_candidates_matches_reference():
+    """Candidate dedupe (later duplicates, self), stable distance sort and
+    the heuristic, on candidate lists full of repeats."""
+    rng = np.random.default_rng(12)
+    data = make_unit(200, 32, seed=13)
+    jc = JCorpus.from_array(data, metric="cosine")
+    tc = Corpus.from_array(data, metric="cosine", device="cpu")
+    self_ids = np.arange(16, dtype=np.int32)
+    cand = rng.integers(-1, 60, (16, 40)).astype(np.int32)
+    want = jbuild.select_from_candidates(
+        jc.vectors[:16], jnp.asarray(cand), jc.vectors, jc.sq_norms,
+        jnp.asarray(self_ids), cap=8, metric=JCorpus.from_array(
+            data[:1]).metric)
+    got = tbuild.select_from_candidates(
+        tc.vectors[:16], torch.from_numpy(cand), tc.vectors, tc.sq_norms,
+        torch.from_numpy(self_ids), cap=8, metric="cosine")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_reverse_edges_keep_every_group_start():
