@@ -17,9 +17,16 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      load_index, Index): flat indexes with scan_kernel "sweep" (bf16, int8)
      and "packed" (int8), the packed DOT guard on an unnormalized corpus,
      save / load in .npz and .idx, and a stateful HNSW index of 30,149 rows
-     grown by one wave insert of 1,024.
-Phases 4 and 5 each zero the launch counts just before and read them just
-after; each must have run its kernels, and all seven together. Then one
+     grown by one wave insert of 1,024;
+  6. the probe path at full width (the twin of scripts/_probe_r4e.py, r4f,
+     r5a and r5c): the four matmul floors at the probes' shapes, timed
+     beside the scan kernels they bound, then partitioned HNSW (8
+     partitions) and IVF-HNSW (32 clusters) built, searched at B=1024
+     through the hop_score kernel at hop width 256, measured with the
+     ported bench harness (recall@10 against the exact flat index, QPS,
+     build seconds), and saved and loaded with identical rows.
+Phases 4, 5 and 6 each zero the launch counts just before and read them just
+after; each must have run its kernels, and all eleven together. Then one
 JSON line of per-kernel records, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -44,7 +51,8 @@ INT8_OPS_S = 1979e12
 
 N, DIM, SEED = 31173, 768, 42
 KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
-           "exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk")
+           "exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk",
+           "mm_only", "mm_only_kmajor", "matmul_only", "matmul_min")
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
@@ -429,6 +437,105 @@ def check_packed_kernel(torch, data, records):
                 bound_by=by, library_ms=lib_ms)
 
 
+# the probes' shapes: bf16 B=1024 (and bucket_topk's B=4096) and int8 B=4096
+# over the corpus padded to 4096 rows (32,768); nt=2048 (INT8_NT)
+FLOOR_NT = 2048
+
+
+def floor_inputs(torch, data):
+    """The probes' operands: the corpus zero-padded to 32,768 rows as bf16
+    (and its K-major copy) and as per-row int8 codes, and corpus rows as
+    queries; plus the 31,744-row bf16 pack of bucket_topk."""
+    from hnsw_tpu_torch.models.flat import quantize_rows
+    from hnsw_tpu_torch.types import Corpus
+
+    corpus = Corpus.from_array(data, metric="cosine")
+    pad = torch.nn.functional.pad
+    n_pad = -(-corpus.n_pad // 4096) * 4096
+    v = pad(corpus.vectors, (0, 0, 0, n_pad - corpus.n_pad))
+    vb = v.to(torch.bfloat16)
+    v8, _ = quantize_rows(v)
+    q8, _ = quantize_rows(corpus.pad_queries(data[:4096]))
+    return dict(
+        n=corpus.n, q1024=corpus.pad_queries(data[:1024]).to(torch.bfloat16),
+        q4096=corpus.pad_queries(data[:4096]).to(torch.bfloat16),
+        v=vb, vT=vb.T.contiguous(), v31744=vb[:31744].contiguous(),
+        q8=q8, v8=v8)
+
+
+def check_probe_kernels(torch, data, records):
+    """The four floors against their plain versions at the probes' shapes:
+    int32 outputs bit for bit, f32 column sums within 1e-3 * max |out|
+    (exact bf16 products summed in another order)."""
+    from hnsw_tpu_torch.ops import probes
+
+    x = floor_inputs(torch, data)
+    q, v, vT, q8, v8 = x["q1024"], x["v"], x["vT"], x["q8"], x["v8"]
+    b, d = q.shape
+    n_used = v8.shape[0]
+    live = live_rows(N)
+    g = FLOOR_NT // 128
+    cases = (
+        ("mm_only", probes.mm_only, (q, v), probes.mm_only_plain,
+         lambda: torch.matmul(q, v.T).float().reshape(b, -1, 128).sum(1),
+         "torch.matmul NT + column-group sum", "scripts/_probe_r4e.py:119"),
+        ("mm_only_nt", probes.mm_only_nt, (q, v), probes.mm_only_plain,
+         lambda: torch.matmul(q, v.T).float().reshape(b, -1, 128).sum(1),
+         "torch.matmul NT + column-group sum", "scripts/_probe_r4f.py:95"),
+        ("mm_only_kmajor", probes.mm_only_kmajor, (q, vT),
+         probes.mm_only_kmajor_plain,
+         lambda: torch.matmul(q, vT).float().reshape(b, -1, 128).sum(1),
+         "torch.matmul NN + column-group sum", "scripts/_probe_r4f.py:95"),
+    )
+    for name, fn, args, plain, lib, lib_what, replaces in cases:
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-3 * float(want.abs().max())
+        check(err <= tol, f"{name} disagrees with its plain version: {err}")
+        ms = time_ms(lambda: fn(*args))
+        plain_ms = time_ms(lambda: plain(*args), reps=5)
+        lib_ms = time_ms(lib, reps=10)
+        bms, by = bound(live * d * 2 + b * d * 2 + b * 128 * 4,
+                        2 * b * live * d, BF16_OPS_S)
+        say("kernel", name=name, shape=f"B={b},N={v.shape[0]},D={d}",
+            max_abs_err=err, tol=tol, kernel_ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library=lib_what, bound_ms=bms, bound_by=by)
+        records[name] = dict(
+            name=name, route="cuda", source="hnsw_tpu_torch/csrc/probes.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    b8 = q8.shape[0]
+    v8t = v8.T
+    lo = n_used - FLOOR_NT
+    for name, fn, plain, lib, replaces in (
+            ("matmul_only", probes.matmul_only, probes.matmul_only_plain,
+             lambda: torch._int_mm(q8, v8t)[:, lo:lo + 128],
+             "scripts/_probe_r5a.py:88"),
+            ("matmul_min", probes.matmul_min, probes.matmul_min_plain,
+             lambda: torch._int_mm(q8, v8t)[:, lo:].reshape(b8, g, 128)
+             .amin(1), "scripts/_probe_r5c.py:79")):
+        got, want = fn(q8, v8, nt=FLOOR_NT), plain(q8, v8, nt=FLOOR_NT)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)),
+              f"{name} differs from its plain version")
+        check(bool(torch.equal(lib(), want)),
+              f"{name}: the library yardstick computes another function")
+        ms = time_ms(lambda: fn(q8, v8, nt=FLOOR_NT))
+        plain_ms = time_ms(lambda: plain(q8, v8, nt=FLOOR_NT), reps=5)
+        lib_ms = time_ms(lib, reps=10)
+        bms, by = bound(live * d + b8 * d + b8 * 128 * 4,
+                        2 * b8 * live * d, INT8_OPS_S)
+        say("kernel", name=name, shape=f"B={b8},N={n_used},D={d},"
+            f"nt={FLOOR_NT}", max_abs_err=0, tol=0, kernel_ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        records[name] = dict(
+            name=name, route="cuda", source="hnsw_tpu_torch/csrc/probes.cu",
+            replaces=replaces, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -673,6 +780,148 @@ def api_path(torch, data):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the probe path
+# ---------------------------------------------------------------------------
+
+def probe_path(torch, data):
+    """The probe scripts' path at full width: the floors beside the scan
+    kernels they bound, then partitioned HNSW (r4e, r5c) and IVF-HNSW
+    (r5c) through the ported harness, and a save / load of each."""
+    import tempfile
+
+    import hnsw_tpu_torch as ht
+    from hnsw_tpu_torch.bench import (measure_build, run_recall_benchmark,
+                                      run_search_benchmark)
+    from hnsw_tpu_torch.models import FlatIndex
+    from hnsw_tpu_torch.models.flat import quantize_rows
+    from hnsw_tpu_torch.ops import hop, probes, scan
+    from hnsw_tpu_torch.types import Corpus
+
+    kernels = (hop.hop_score, hop.hop_score_int8, scan.bucket_topk,
+               scan.int8_bucket_topk, scan.exact_topk_sweep,
+               scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
+               probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
+               probes.matmul_min)
+    x = floor_inputs(torch, data)
+    corpus = Corpus.from_array(data, metric="cosine")
+    pad = torch.nn.functional.pad
+    vsq = pad(corpus.sq_norms, (0, 31744 - corpus.n_pad))
+    vkey = scan.bf16_vkey(vsq, "cosine")
+    v8, vs = quantize_rows(corpus.vectors)
+    v8 = pad(v8, (0, 0, 0, 32768 - corpus.n_pad))
+    vs = pad(vs, (0, 32768 - corpus.n_pad))
+    vsq8 = pad(corpus.sq_norms, (0, 32768 - corpus.n_pad))
+    qf = corpus.pad_queries(data[:4096])
+    q8, qs = quantize_rows(qf)
+    qmeta = torch.stack([qs, (qf * qf).sum(1)], dim=1)
+    vk8 = scan.int8_vkey(vs, vsq8, "cosine")
+    n = corpus.n
+    torch.cuda.synchronize()
+
+    for fn in kernels:
+        fn.launches = 0
+    nt = FLOOR_NT
+    # (a) the floors at the probes' shapes, beside the kernels they bound
+    floors = {
+        "mm_only B=1024 (r4e)": lambda: probes.mm_only(x["q1024"], x["v"]),
+        "mm_only_nt B=1024 (r4f)": lambda: probes.mm_only_nt(x["q1024"],
+                                                             x["v"]),
+        "mm_only_kmajor B=1024 (r4f)": lambda: probes.mm_only_kmajor(
+            x["q1024"], x["vT"]),
+        "mm_only B=4096 N=31744 (bucket_topk's shape)": lambda: probes.mm_only(
+            x["q4096"], x["v31744"]),
+        "matmul_only B=4096 (r5a)": lambda: probes.matmul_only(
+            x["q8"], x["v8"], nt=nt),
+        "matmul_min B=4096 (r5c)": lambda: probes.matmul_min(
+            x["q8"], x["v8"], nt=nt),
+        "bucket_topk B=4096": lambda: scan.bucket_bank(
+            x["v31744"], vkey, x["q4096"], n, metric="cosine"),
+        "exact_topk_sweep B=4096": lambda: scan.exact_topk_sweep(
+            x["v31744"], vsq, x["q4096"], n, k=K, metric="cosine", bt=512),
+        "int8_bucket_topk B=4096": lambda: scan.int8_bucket_bank(
+            v8, vk8, vs, q8, qs, n, metric="cosine"),
+        "int8_sweep_topk B=4096": lambda: scan.int8_sweep_topk(
+            v8, vs, vsq8, q8, qmeta, n, k=K + 6, metric="cosine", bt=256,
+            nt=1024),
+        "int8_packed_topk B=4096": lambda: scan.int8_packed_bank(
+            v8, -vk8, q8, n),
+    }
+    times = {}
+    for label, fn in floors.items():
+        times[label] = time_ms(fn)
+        say("probe", stage="floor", what=label, ms=times[label])
+    bf16_floor = times["mm_only B=4096 N=31744 (bucket_topk's shape)"]
+    int8_floor = times["matmul_min B=4096 (r5c)"]
+    for label, floor in (("bucket_topk B=4096", bf16_floor),
+                         ("exact_topk_sweep B=4096", bf16_floor),
+                         ("int8_bucket_topk B=4096", int8_floor),
+                         ("int8_sweep_topk B=4096", int8_floor),
+                         ("int8_packed_topk B=4096", int8_floor)):
+        say("probe", stage="epilogue", kernel=label, kernel_ms=times[label],
+            floor_ms=floor, epilogue_ms=times[label] - floor)
+    del x
+
+    # (b) the families, measured with the ported harness
+    exact = FlatIndex(corpus)
+    q = data[:1024]
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fam, kw, modes, bars in (
+                ("partitioned_hnsw", dict(num_partitions=8),
+                 ("balanced", "accurate"), {"accurate": 0.95}),
+                ("ivf_hnsw", dict(num_partitions=32),
+                 ("balanced", "precise"), {"balanced": 0.90})):
+            idx, build_s = measure_build(
+                lambda: ht.build_index(corpus, fam, **kw))
+            say("probe", stage="build", family=fam, **kw,
+                build_seconds=build_s)
+            # the hop width c = expand * M0, a width no earlier phase ran
+            width = idx.expand * (idx.m0 if fam == "partitioned_hnsw"
+                                  else idx.adj0.shape[1])
+            check(width == 256, f"{fam}: hop width {width}")
+            for mode in modes:
+                before = hop.hop_score.launches
+                d, r = idx.search_batch(q, K, mode)
+                check(hop.hop_score.launches > before,
+                      f"{fam} {mode}: hop_score was not launched")
+                check(bool((r >= 0).all()), f"{fam} {mode}: row -1")
+                check(bool(torch.isfinite(d).all()),
+                      f"{fam} {mode}: non-finite distances")
+                rec = run_recall_benchmark(idx, data, k=K, mode=mode,
+                                           num_queries=1024,
+                                           exact_index=exact)["recall_at_k"]
+                perf = run_search_benchmark(idx, q, k=K, mode=mode,
+                                            batch_size=1024, warmup=1,
+                                            iters=3, single_query_iters=0)
+                results[(fam, mode)] = rec
+                say("probe", stage="search", family=fam, mode=mode,
+                    batch=1024, hop_width=width, recall_at_10=rec,
+                    bar=bars.get(mode), qps_batched=perf["qps_batched"],
+                    qps_device=perf["qps_device"],
+                    batch_latency_ms=perf["batch_latency_ms"])
+                if mode in bars:
+                    check(rec >= bars[mode],
+                          f"{fam} {mode}: recall {rec} < {bars[mode]}")
+            rows = idx.search_batch(q, K, modes[-1])[1]
+            path = ht.save_index(idx, f"{tmp}/{fam}", format="dir")
+            back = ht.load_index(path)
+            check(type(back) is type(idx) and
+                  _rows_equal(torch, back.search_batch(q, K, modes[-1])[1],
+                              rows), f"{fam}: rows differ after reload")
+            say("probe", stage="persist", family=fam, format="dir",
+                rows_identical=True)
+            del idx, back
+            torch.cuda.empty_cache()
+
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    say("probe", launches=json.dumps(launches))
+    for name in ("hop_score", "mm_only", "mm_only_nt", "mm_only_kmajor",
+                 "matmul_only", "matmul_min"):
+        check(launches[name] > 0, f"{name} was not launched on the probe path")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -713,16 +962,20 @@ def main() -> int:
     check_scan_kernels(torch, data, records)
     check_sweep_kernels(torch, data, records)
     check_packed_kernel(torch, data, records)
+    check_probe_kernels(torch, data, records)
     torch.cuda.empty_cache()
 
     launches = main_path(torch, data)
     torch.cuda.empty_cache()
     api_launches = api_path(torch, data)
+    torch.cuda.empty_cache()
+    probe_launches = probe_path(torch, data)
     out = []
     for name in KERNELS:
         rec = records[name]
-        rec["launches"] = launches.get(name, 0) + api_launches[name]
-        check(rec["launches"] > 0, f"{name} was not launched in phases 4-5")
+        rec["launches"] = (launches.get(name, 0) + api_launches.get(name, 0)
+                           + probe_launches[name])
+        check(rec["launches"] > 0, f"{name} was not launched in phases 4-6")
         out.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -1,8 +1,9 @@
-"""hnsw_tpu_torch: the PyTorch / CUDA port of hnsw_tpu for one NVIDIA H100.
+"""hnsw_tpu_torch: the PyTorch / CUDA port of ``hnsw_tpu/`` for one NVIDIA H100.
 
-Laid out like ``hnsw_tpu`` (types, config, ops, models, models/hnsw, io,
-api), so each module's counterpart is found under the same name. It never imports JAX
-or the JAX package; the tests import both and hold the port against it.
+Laid out like ``hnsw_tpu/`` (types, config, ops, models, models/hnsw, io,
+api, bench), so each module's counterpart is found under the same name. It
+never imports JAX or the JAX package; the tests import both and hold the port
+against it.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 The TPU's Pallas kernels on the main path are hand-written CUDA kernels in
@@ -36,6 +37,10 @@ from hnsw_tpu_torch.models import (  # noqa: E402
     FAMILIES,
     FlatIndex,
     HNSWIndex,
+    IVFHNSWIndex,
+    PartitionedHNSWIndex,
+    build_ivf_hnsw_index,
+    build_partitioned_hnsw,
 )
 from hnsw_tpu_torch.models.base import ANNIndex  # noqa: E402
 
@@ -46,6 +51,7 @@ __all__ = [
     "index_info", "index_type",
     "save_index", "load_index", "index_exists",
     "Index",
-    "ANNIndex", "FlatIndex", "HNSWIndex",
+    "ANNIndex", "FlatIndex", "HNSWIndex", "PartitionedHNSWIndex",
+    "IVFHNSWIndex", "build_partitioned_hnsw", "build_ivf_hnsw_index",
     "FAMILIES",
 ]

@@ -1,16 +1,17 @@
-"""Index families. The JAX package has eight; flat and HNSW are ported. The
-other six keep their names (and the reference aliases) in FAMILIES, and
-building or loading one raises NotImplementedError naming the ROADMAP item
-that ports it."""
+"""Index families. The JAX package has eight; flat, HNSW, partitioned HNSW
+and IVF-HNSW are ported. The other four keep their names (and the reference
+aliases) in FAMILIES, and building or loading one raises
+NotImplementedError naming the ROADMAP item that ports it."""
 
 from hnsw_tpu_torch.models.flat import FlatIndex, build_flat_index
 from hnsw_tpu_torch.models.hnsw import HNSWIndex, build_hnsw_index
+from hnsw_tpu_torch.models.ivf_hnsw import IVFHNSWIndex, build_ivf_hnsw_index
+from hnsw_tpu_torch.models.partitioned import (PartitionedHNSWIndex,
+                                               build_partitioned_hnsw)
 
 # family (and alias) -> ROADMAP §A item that ports it
 UNPORTED = {
-    "partitioned": "A9", "partitioned_hnsw": "A9",
     "lightning": "A8", "ivf_flat": "A8",
-    "ivf_hnsw": "A9",
     "lsh": "A10", "hybrid_lsh": "A10",
     "pcaf": "A10",
 }
@@ -38,11 +39,18 @@ FAMILIES = {
     "hnsw": build_hnsw_index,
     "ultra_fast": build_hnsw_index,       # reference alias (ultra_fast.clj)
     "pure_hnsw": build_hnsw_index,        # reference alias (pure_hnsw.clj)
+    "partitioned": build_partitioned_hnsw,
+    "partitioned_hnsw": build_partitioned_hnsw,
+    "ivf_hnsw": build_ivf_hnsw_index,
     **{name: _later(name) for name in UNPORTED},
 }
 
 # family name -> class, for loaders that dispatch on a saved family
-INDEX_CLASSES = {"flat": FlatIndex, "hnsw": HNSWIndex}
+INDEX_CLASSES = {cls.family: cls for cls in (FlatIndex, HNSWIndex,
+                                             PartitionedHNSWIndex,
+                                             IVFHNSWIndex)}
 
-__all__ = ["FlatIndex", "HNSWIndex", "build_flat_index", "build_hnsw_index",
-           "FAMILIES", "INDEX_CLASSES", "UNPORTED", "unported"]
+__all__ = ["FlatIndex", "HNSWIndex", "PartitionedHNSWIndex", "IVFHNSWIndex",
+           "build_flat_index", "build_hnsw_index", "build_partitioned_hnsw",
+           "build_ivf_hnsw_index", "FAMILIES", "INDEX_CLASSES", "UNPORTED",
+           "unported"]

@@ -274,6 +274,60 @@ def pack_neighbors_int8(vectors, v_sq, adj0):
             v_sq[rows].contiguous())
 
 
+def prepare_hop_fast_path(owner, corpus, adj0, *, expand: int,
+                          pack_bytes_cap: int):
+    """Shared wiring of the packed-neighbourhood bf16 hop path for the
+    families that run hnsw_search_batch over disjoint subgraphs of one
+    global adjacency (IVF-HNSW, partitioned HNSW). Caches the bf16 corpus
+    shadow and the neighbour pack on `owner` (attributes _vec_lp, _nbr_pack,
+    _nbr_sq) and returns the keyword arguments for hnsw_search_batch.
+
+    Policy: bf16 loop scoring only for cosine (the euclidean norm formula
+    cancels at bf16), and the pack only while its degree-duplicated bytes
+    fit pack_bytes_cap. A used pack is scored by ops/hop.py (the CUDA
+    kernel on the card), which takes every hop width: the reference's `ef`
+    argument fed only its kernel's eligibility test and is not taken."""
+    precision = "default" if corpus.metric == Metric.COSINE else "highest"
+    if owner._vec_lp is None or owner._vec_lp.shape != corpus.vectors.shape:
+        owner._vec_lp = corpus.vectors.to(torch.bfloat16)
+        owner._nbr_pack = None
+        owner._nbr_sq = None
+    m0 = adj0.shape[1]
+    dim = corpus.vectors.shape[1]
+    use_pack = precision != "highest" and (
+        adj0.shape[0] * m0 * (dim * 2 + 4) <= pack_bytes_cap)
+    if use_pack and owner._nbr_pack is None:
+        owner._nbr_pack, owner._nbr_sq = pack_neighbors(
+            owner._vec_lp, corpus.sq_norms, adj0)
+    return dict(precision=precision, vectors_lp=owner._vec_lp,
+                nbr_pack=owner._nbr_pack if use_pack else None,
+                nbr_sq=owner._nbr_sq if use_pack else None, expand=expand)
+
+
+def sample_entries_grouped(vectors, v_sq, sample_rows, queries, *,
+                           metric: Metric, r: int = 1):
+    """Per-group top-r entry rows: one [B, P*S] f32 product, then a stable
+    sort within each group's block. sample_rows: int32 [P, S] per-group
+    candidate rows (-1 padded). Seeds each disjoint subgraph's part of a
+    shared beam near the query. Returns entries [B, P*r] (global rows, -1
+    padded)."""
+    p, s = sample_rows.shape
+    flat = sample_rows.reshape(-1)
+    rows = torch.clamp(flat, min=0).long()
+    sub = vectors[rows]                                     # [P*S, D]
+    sub_sq = v_sq[rows]
+    dots = torch.matmul(queries, sub.T)
+    q_sq = torch.sum(queries * queries, dim=-1, keepdim=True)
+    d = _dist_bc(dots, q_sq, sub_sq[None, :], Metric.coerce(metric))
+    b = d.shape[0]
+    d = torch.where((flat >= 0)[None, :], d, BIG).reshape(b, p, s)
+    sd, order = torch.sort(d, dim=-1, stable=True)          # along S
+    si = torch.gather(sample_rows[None].expand(b, p, s), -1, order)
+    rr = min(r, s)
+    out = torch.where(sd[:, :, :rr] < BIG, si[:, :, :rr], -1)
+    return out.reshape(b, p * rr)
+
+
 def sample_entries(vectors, v_sq, sample_rows, queries, *, metric: Metric):
     """Batched entry selection without hierarchy descent: score each query
     against a fixed row sample in one f32 product and seed the beam at the

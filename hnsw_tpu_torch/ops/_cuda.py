@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("hop.cu", "scan.cu", "sweep.cu")
+SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +64,12 @@ SIGNATURES = {
         "sweep_topk_int8": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
         # part_d, part_r, out_d, out_r, B, k, splits, stream
         "sweep_merge": (P, P, P, P, I, I, I, P),
+    },
+    "probes.cu": {
+        # v (or vT), q, part, out, B, N, D, kmajor, splits, stream
+        "colsum_bf16": (P, P, P, P, I, I, I, I, I, P),
+        # v8, q8, out, B, N_used, D, nt, take_min, splits, stream
+        "last_tile_int8": (P, P, P, I, I, I, I, I, I, P),
     },
 }
 

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time the two bucketed bank kernels (bucket_topk, int8_bucket_topk) of the
-hnsw_tpu_torch tree in the current directory, at chip_smoke.py's shapes:
-31,173 x 768 embedding-like corpus (cosine), B = 4096, N_pad 31,744 (bf16)
-and 32,768 (int8). Prints the median of 30 CUDA-event timings of each.
+"""Time the flat-scan kernels of the hnsw_tpu_torch tree in the current
+directory, at chip_smoke.py's shapes: 31,173 x 768 embedding-like corpus
+(cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8). The two
+bucketed bank kernels (bucket_topk, int8_bucket_topk) keep their own tile
+loop; the three others (exact_topk_sweep, int8_sweep_topk, int8_packed_topk)
+run the shared one of csrc/tile.cuh. Prints the median of 30 CUDA-event
+timings of each.
 
 To compare two trees on one card, unpack the other tree (for example the
 parent commit: git archive HEAD hnsw_tpu_torch | tar -x -C <dir>) and run,
@@ -61,12 +64,25 @@ def main() -> int:
     vs = pad(vs, (0, 32768 - c.n_pad))
     vk8 = scan.int8_vkey(vs, pad(c.sq_norms, (0, 32768 - c.n_pad)), "cosine")
     q8, qs = quantize_rows(c.pad_queries(data[:4096]))
-    bf16 = median_ms(lambda: scan.bucket_bank(vec, vkey, q, c.n,
-                                              metric="cosine"))
-    int8 = median_ms(lambda: scan.int8_bucket_bank(v8, vk8, vs, q8, qs, c.n,
-                                                   metric="cosine"))
-    print(os.getcwd(), "bucket_bank_ms", bf16, "int8_bucket_bank_ms", int8,
-          flush=True)
+    vsq = pad(c.sq_norms, (0, 31744 - c.n_pad))
+    vsq8 = pad(c.sq_norms, (0, 32768 - c.n_pad))
+    qf = c.pad_queries(data[:4096])
+    qmeta = torch.stack([qs, (qf * qf).sum(1)], dim=1)
+    times = {
+        "bucket_bank_ms": lambda: scan.bucket_bank(vec, vkey, q, c.n,
+                                                   metric="cosine"),
+        "int8_bucket_bank_ms": lambda: scan.int8_bucket_bank(
+            v8, vk8, vs, q8, qs, c.n, metric="cosine"),
+        "exact_topk_sweep_ms": lambda: scan.exact_topk_sweep(
+            vec, vsq, q, c.n, k=10, metric="cosine", bt=512),
+        "int8_sweep_topk_ms": lambda: scan.int8_sweep_topk(
+            v8, vs, vsq8, q8, qmeta, c.n, k=16, metric="cosine", bt=256,
+            nt=1024),
+        "int8_packed_bank_ms": lambda: scan.int8_packed_bank(v8, -vk8, q8,
+                                                             c.n),
+    }
+    print(os.getcwd(), " ".join(f"{name} {median_ms(fn)}"
+                                for name, fn in times.items()), flush=True)
     return 0
 
 

@@ -10,7 +10,7 @@ package, on the CPU.
    the .idx directory): an index saved by one package loads in the other
    with the same header, arrays, ids and metadata, and answers with
    identical rows.
-3. Names: the six families not ported yet raise NotImplementedError naming
+3. Names: the four families not ported yet raise NotImplementedError naming
    their ROADMAP item, not the unknown-type ValueError.
 4. A reference fault not copied (ROADMAP §C): build_best_for_size lets a
    caller's precision= win where the reference raises TypeError.
@@ -54,8 +54,7 @@ def test_unknown_family_raises():
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("partitioned", "A9"), ("partitioned_hnsw", "A9"), ("lightning", "A8"),
-    ("ivf_flat", "A8"), ("ivf_hnsw", "A9"), ("lsh", "A10"),
+    ("lightning", "A8"), ("ivf_flat", "A8"), ("lsh", "A10"),
     ("hybrid_lsh", "A10"), ("pcaf", "A10")])
 def test_unported_families_name_their_roadmap_item(kind, item):
     assert kind in hnsw_tpu.FAMILIES and kind in ht.FAMILIES
@@ -70,8 +69,11 @@ def test_build_best_for_size_both_policies():
     assert (r.numpy()[:, 0] == np.arange(4)).all()
     assert ht.build_best_for_size(DATA, policy="reference", M=8,
                                   **CPU).family == "hnsw"   # < 1000 rows
-    big = make_unit(1000, 8, seed=3)
-    with pytest.raises(NotImplementedError, match="A9"):
+    mid = make_unit(1000, 8, seed=3)          # < 10k rows: partitioned HNSW
+    assert ht.build_best_for_size(mid, policy="reference", M=8,
+                                  **CPU).family == "partitioned_hnsw"
+    big = make_unit(10000, 4, seed=3)         # IVF-FLAT, not ported yet
+    with pytest.raises(NotImplementedError, match="A8"):
         ht.build_best_for_size(big, policy="reference", **CPU)
 
 

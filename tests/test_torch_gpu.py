@@ -9,6 +9,7 @@ not installed; on the card:
 Tolerances: kernel and plain version form the same exact bf16 x bf16
 (bf16 x int8, s8 x s8) products and differ only in the order of the f32
 sums; bucket rows may differ only where two keys tie within that error.
+The int8 floors (int32 dots) agree bit for bit.
 """
 
 import numpy as np
@@ -16,9 +17,12 @@ import pytest
 import torch
 
 from hnsw_tpu_torch.io.datagen import generate_vectors
-from hnsw_tpu_torch.models import FlatIndex, HNSWIndex, build_hnsw_index
+from hnsw_tpu_torch.models import (FlatIndex, HNSWIndex, IVFHNSWIndex,
+                                   PartitionedHNSWIndex, build_hnsw_index,
+                                   build_ivf_hnsw_index,
+                                   build_partitioned_hnsw)
 from hnsw_tpu_torch.models.flat import quantize_rows
-from hnsw_tpu_torch.ops import hop, scan
+from hnsw_tpu_torch.ops import hop, probes, scan
 from hnsw_tpu_torch.types import Corpus
 
 pytestmark = pytest.mark.gpu
@@ -223,3 +227,62 @@ def test_flat_scan_kernels_on_the_card(cuda_device):
     FlatIndex(big, precision="int8", scan_kernel="packed").search_batch(q, 10)
     assert (scan.int8_packed_topk.launches,
             scan.int8_bucket_topk.launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("b,n,d", [(1024, 4096, 768), (37, 1000, 256)])
+def test_bf16_floors_match_plain_versions(b, n, d, cuda_device):
+    """The second shape has a B and an N that are not tile multiples (the
+    wrapper pads N to 128 rows of zeros, which add nothing). The sums are
+    exact bf16 products taken in another order: 1e-3 * max |out|."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn(b, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    v = torch.randn(n, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    want = probes.mm_only_plain(q, v)
+    for fn, arg in ((probes.mm_only, v), (probes.mm_only_nt, v),
+                    (probes.mm_only_kmajor, v.T.contiguous())):
+        before = fn.launches
+        got = fn(q, arg)
+        assert fn.launches == before + 1
+        assert float((got - want).abs().max()) <= \
+            1e-3 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b,n,d,nt", [(4096, 32768, 768, 2048),
+                                      (37, 5000, 256, 2048)])
+def test_int8_floors_match_plain_versions(b, n, d, nt, cuda_device):
+    """int32 dots are exact: bit for bit. The second shape has a B and an N
+    that are not tile multiples (the last whole nt tile is kept)."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    q8 = torch.randint(-127, 128, (b, d), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    v8 = torch.randint(-127, 128, (n, d), generator=g,
+                       dtype=torch.int8).to(cuda_device)
+    for fn, plain in ((probes.matmul_only, probes.matmul_only_plain),
+                      (probes.matmul_min, probes.matmul_min_plain)):
+        before = fn.launches
+        got = fn(q8, v8, nt=nt)
+        assert fn.launches == before + 1
+        torch.testing.assert_close(got, plain(q8, v8, nt=nt), rtol=0, atol=0)
+
+
+def test_families_on_the_card_match_the_plain_path(cuda_device):
+    """Partitioned HNSW and IVF-HNSW built on the card search through the
+    hop_score kernel; the same index on the CPU (plain versions) returns
+    the same rows for >= 99% of queries (bf16 sums in another order reorder
+    only near-ties)."""
+    data = generate_vectors(3000, 128, distribution="embedding",
+                            num_clusters=16, seed=7)
+    q = data[:256]
+    for build, cls, kw in (
+            (build_partitioned_hnsw, PartitionedHNSWIndex,
+             dict(num_partitions=4)),
+            (build_ivf_hnsw_index, IVFHNSWIndex, dict(num_partitions=8))):
+        gpu = build(data, device=cuda_device, **kw)
+        cpu = cls.from_state(Corpus.from_array(data, device="cpu"),
+                             gpu.to_state())
+        before = hop.hop_score.launches
+        _, gr = gpu.search_batch(q, 10, "balanced")
+        assert hop.hop_score.launches > before
+        _, cr = cpu.search_batch(q, 10, "balanced")
+        assert (gr.cpu() == cr).all(dim=1).float().mean() >= 0.99
+        assert bool((gr >= 0).all())
