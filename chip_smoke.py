@@ -19,8 +19,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      save / load in .npz and .idx, and a stateful HNSW index of 30,149 rows
      grown by one wave insert of 1,024;
   6. the probe path at full width (the twin of scripts/_probe_r4e.py, r4f,
-     r5a and r5c): the four matmul floors at the probes' shapes, timed
-     beside the scan kernels they bound, then partitioned HNSW (8
+     r5a and r5c): the four matmul floors run at the probes' shapes, their
+     phase-3 times printed beside those of the scan kernels they bound,
+     then partitioned HNSW (8
      partitions) and IVF-HNSW (32 clusters) built, searched at B=1024
      through the hop_score kernel at hop width 256, measured with the
      ported bench harness (recall@10 against the exact flat index, QPS,
@@ -437,103 +438,72 @@ def check_packed_kernel(torch, data, records):
                 bound_by=by, library_ms=lib_ms)
 
 
-# the probes' shapes: bf16 B=1024 (and bucket_topk's B=4096) and int8 B=4096
-# over the corpus padded to 4096 rows (32,768); nt=2048 (INT8_NT)
-FLOOR_NT = 2048
-
-
-def floor_inputs(torch, data):
-    """The probes' operands: the corpus zero-padded to 32,768 rows as bf16
-    (and its K-major copy) and as per-row int8 codes, and corpus rows as
-    queries; plus the 31,744-row bf16 pack of bucket_topk."""
-    from hnsw_tpu_torch.models.flat import quantize_rows
-    from hnsw_tpu_torch.types import Corpus
-
-    corpus = Corpus.from_array(data, metric="cosine")
-    pad = torch.nn.functional.pad
-    n_pad = -(-corpus.n_pad // 4096) * 4096
-    v = pad(corpus.vectors, (0, 0, 0, n_pad - corpus.n_pad))
-    vb = v.to(torch.bfloat16)
-    v8, _ = quantize_rows(v)
-    q8, _ = quantize_rows(corpus.pad_queries(data[:4096]))
-    return dict(
-        n=corpus.n, q1024=corpus.pad_queries(data[:1024]).to(torch.bfloat16),
-        q4096=corpus.pad_queries(data[:4096]).to(torch.bfloat16),
-        v=vb, vT=vb.T.contiguous(), v31744=vb[:31744].contiguous(),
-        q8=q8, v8=v8)
+# the TPU kernel each floor reading stands for, and what its library call is
+FLOOR_RECORDS = {
+    "mm_only_b1024": ("mm_only", "scripts/_probe_r4e.py:119",
+                      "torch.matmul NT + column-group sum"),
+    "mm_only_nt_b1024": ("mm_only_nt", "scripts/_probe_r4f.py:95",
+                         "torch.matmul NT + column-group sum"),
+    "mm_only_kmajor_b1024": ("mm_only_kmajor", "scripts/_probe_r4f.py:95",
+                             "torch.matmul NN + column-group sum"),
+    "mm_only_b4096_n31744": (None, None,
+                             "torch.matmul NT + column-group sum"),
+    "matmul_only_b4096_nt2048": ("matmul_only", "scripts/_probe_r5a.py:88",
+                                 "torch._int_mm + slice"),
+    "matmul_min_b4096_nt2048": ("matmul_min", "scripts/_probe_r5c.py:79",
+                                "torch._int_mm + min over g"),
+}
 
 
 def check_probe_kernels(torch, data, records):
-    """The four floors against their plain versions at the probes' shapes:
+    """The four floors against their plain versions at the probes' shapes,
+    and mm_only also at bucket_topk's (B=4096 over its 31,744-row pack):
     int32 outputs bit for bit, f32 column sums within 1e-3 * max |out|
-    (exact bf16 products summed in another order)."""
-    from hnsw_tpu_torch.ops import probes
+    (exact bf16 products summed in another order). Returns each reading's
+    kernel time by its label in floor_calls."""
+    from hnsw_tpu_torch.bench.kernels import floor_calls, probe_operands
 
-    x = floor_inputs(torch, data)
-    q, v, vT, q8, v8 = x["q1024"], x["v"], x["vT"], x["q8"], x["v8"]
-    b, d = q.shape
-    n_used = v8.shape[0]
+    d = DIM
     live = live_rows(N)
-    g = FLOOR_NT // 128
-    cases = (
-        ("mm_only", probes.mm_only, (q, v), probes.mm_only_plain,
-         lambda: torch.matmul(q, v.T).float().reshape(b, -1, 128).sum(1),
-         "torch.matmul NT + column-group sum", "scripts/_probe_r4e.py:119"),
-        ("mm_only_nt", probes.mm_only_nt, (q, v), probes.mm_only_plain,
-         lambda: torch.matmul(q, v.T).float().reshape(b, -1, 128).sum(1),
-         "torch.matmul NT + column-group sum", "scripts/_probe_r4f.py:95"),
-        ("mm_only_kmajor", probes.mm_only_kmajor, (q, vT),
-         probes.mm_only_kmajor_plain,
-         lambda: torch.matmul(q, vT).float().reshape(b, -1, 128).sum(1),
-         "torch.matmul NN + column-group sum", "scripts/_probe_r4f.py:95"),
-    )
-    for name, fn, args, plain, lib, lib_what, replaces in cases:
-        got, want = fn(*args), plain(*args)
+    floor_ms = {}
+    for label, call in floor_calls(probe_operands(data)).items():
+        name, replaces, lib_what = FLOOR_RECORDS[label]
+        got, want = call(), call.run_plain()
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = 1e-3 * float(want.abs().max())
-        check(err <= tol, f"{name} disagrees with its plain version: {err}")
-        ms = time_ms(lambda: fn(*args))
-        plain_ms = time_ms(lambda: plain(*args), reps=5)
-        lib_ms = time_ms(lib, reps=10)
-        bms, by = bound(live * d * 2 + b * d * 2 + b * 128 * 4,
-                        2 * b * live * d, BF16_OPS_S)
-        say("kernel", name=name, shape=f"B={b},N={v.shape[0]},D={d}",
-            max_abs_err=err, tol=tol, kernel_ms=ms, plain_ms=plain_ms,
+        b = call.args[0].shape[0]
+        int8 = got.dtype == torch.int32
+        if int8:
+            check(bool(torch.equal(got, want)),
+                  f"{label} differs from its plain version")
+            check(bool(torch.equal(call.library(), want)),
+                  f"{label}: the library yardstick computes another function")
+            err, tol = 0.0, 0.0
+        else:
+            err = float((got - want).abs().max())
+            tol = 1e-3 * float(want.abs().max())
+            check(err <= tol, f"{label} disagrees with its plain version: "
+                  f"{err}")
+        ms = time_ms(call)
+        plain_ms = time_ms(call.run_plain, reps=5)
+        lib_ms = time_ms(call.library, reps=10)
+        floor_ms[label] = ms
+        # bf16 reads 2 bytes per element, int8 one; both form every live
+        # row's products (the int8 floors too: they keep only the last
+        # tile's, but run the tile loop over every row by design)
+        esize = 1 if int8 else 2
+        bms, by = bound(live * d * esize + b * d * esize + b * 128 * 4,
+                        2 * b * live * d, INT8_OPS_S if int8 else BF16_OPS_S)
+        rows = call.args[1].shape[1 if "kmajor" in label else 0]
+        say("kernel", name=label, shape=f"B={b},N={rows},D={d}",
+            nt=call.kwargs.get("nt"), max_abs_err=err, tol=tol, kernel_ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, library=lib_what, bound_ms=bms, bound_by=by)
-        records[name] = dict(
-            name=name, route="cuda", source="hnsw_tpu_torch/csrc/probes.cu",
-            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms)
-
-    b8 = q8.shape[0]
-    v8t = v8.T
-    lo = n_used - FLOOR_NT
-    for name, fn, plain, lib, replaces in (
-            ("matmul_only", probes.matmul_only, probes.matmul_only_plain,
-             lambda: torch._int_mm(q8, v8t)[:, lo:lo + 128],
-             "scripts/_probe_r5a.py:88"),
-            ("matmul_min", probes.matmul_min, probes.matmul_min_plain,
-             lambda: torch._int_mm(q8, v8t)[:, lo:].reshape(b8, g, 128)
-             .amin(1), "scripts/_probe_r5c.py:79")):
-        got, want = fn(q8, v8, nt=FLOOR_NT), plain(q8, v8, nt=FLOOR_NT)
-        torch.cuda.synchronize()
-        check(bool(torch.equal(got, want)),
-              f"{name} differs from its plain version")
-        check(bool(torch.equal(lib(), want)),
-              f"{name}: the library yardstick computes another function")
-        ms = time_ms(lambda: fn(q8, v8, nt=FLOOR_NT))
-        plain_ms = time_ms(lambda: plain(q8, v8, nt=FLOOR_NT), reps=5)
-        lib_ms = time_ms(lib, reps=10)
-        bms, by = bound(live * d + b8 * d + b8 * 128 * 4,
-                        2 * b8 * live * d, INT8_OPS_S)
-        say("kernel", name=name, shape=f"B={b8},N={n_used},D={d},"
-            f"nt={FLOOR_NT}", max_abs_err=0, tol=0, kernel_ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
-        records[name] = dict(
-            name=name, route="cuda", source="hnsw_tpu_torch/csrc/probes.cu",
-            replaces=replaces, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        if name is not None:
+            records[name] = dict(
+                name=name, route="cuda",
+                source="hnsw_tpu_torch/csrc/probes.cu", replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+    return floor_ms
 
 
 # ---------------------------------------------------------------------------
@@ -784,82 +754,51 @@ def api_path(torch, data):
 # phase 6: the probe path
 # ---------------------------------------------------------------------------
 
-def probe_path(torch, data):
-    """The probe scripts' path at full width: the floors beside the scan
-    kernels they bound, then partitioned HNSW (r4e, r5c) and IVF-HNSW
-    (r5c) through the ported harness, and a save / load of each."""
+def probe_path(torch, data, records, floor_ms):
+    """The probe scripts' path at full width: each floor once at the
+    probes' shapes, then partitioned HNSW (r4e, r5c) and IVF-HNSW (r5c)
+    through the ported harness, and a save / load of each. The floors and
+    scan kernels were timed in phase 3; their times are printed here side
+    by side, so that a scan kernel's time less its floor is its
+    epilogue."""
     import tempfile
 
     import hnsw_tpu_torch as ht
     from hnsw_tpu_torch.bench import (measure_build, run_recall_benchmark,
                                       run_search_benchmark)
+    from hnsw_tpu_torch.bench.kernels import floor_calls, probe_operands
     from hnsw_tpu_torch.models import FlatIndex
-    from hnsw_tpu_torch.models.flat import quantize_rows
     from hnsw_tpu_torch.ops import hop, probes, scan
-    from hnsw_tpu_torch.types import Corpus
 
     kernels = (hop.hop_score, hop.hop_score_int8, scan.bucket_topk,
                scan.int8_bucket_topk, scan.exact_topk_sweep,
                scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
                probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
                probes.matmul_min)
-    x = floor_inputs(torch, data)
-    corpus = Corpus.from_array(data, metric="cosine")
-    pad = torch.nn.functional.pad
-    vsq = pad(corpus.sq_norms, (0, 31744 - corpus.n_pad))
-    vkey = scan.bf16_vkey(vsq, "cosine")
-    v8, vs = quantize_rows(corpus.vectors)
-    v8 = pad(v8, (0, 0, 0, 32768 - corpus.n_pad))
-    vs = pad(vs, (0, 32768 - corpus.n_pad))
-    vsq8 = pad(corpus.sq_norms, (0, 32768 - corpus.n_pad))
-    qf = corpus.pad_queries(data[:4096])
-    q8, qs = quantize_rows(qf)
-    qmeta = torch.stack([qs, (qf * qf).sum(1)], dim=1)
-    vk8 = scan.int8_vkey(vs, vsq8, "cosine")
-    n = corpus.n
+    x = probe_operands(data)
+    corpus = x["corpus"]
     torch.cuda.synchronize()
 
     for fn in kernels:
         fn.launches = 0
-    nt = FLOOR_NT
     # (a) the floors at the probes' shapes, beside the kernels they bound
-    floors = {
-        "mm_only B=1024 (r4e)": lambda: probes.mm_only(x["q1024"], x["v"]),
-        "mm_only_nt B=1024 (r4f)": lambda: probes.mm_only_nt(x["q1024"],
-                                                             x["v"]),
-        "mm_only_kmajor B=1024 (r4f)": lambda: probes.mm_only_kmajor(
-            x["q1024"], x["vT"]),
-        "mm_only B=4096 N=31744 (bucket_topk's shape)": lambda: probes.mm_only(
-            x["q4096"], x["v31744"]),
-        "matmul_only B=4096 (r5a)": lambda: probes.matmul_only(
-            x["q8"], x["v8"], nt=nt),
-        "matmul_min B=4096 (r5c)": lambda: probes.matmul_min(
-            x["q8"], x["v8"], nt=nt),
-        "bucket_topk B=4096": lambda: scan.bucket_bank(
-            x["v31744"], vkey, x["q4096"], n, metric="cosine"),
-        "exact_topk_sweep B=4096": lambda: scan.exact_topk_sweep(
-            x["v31744"], vsq, x["q4096"], n, k=K, metric="cosine", bt=512),
-        "int8_bucket_topk B=4096": lambda: scan.int8_bucket_bank(
-            v8, vk8, vs, q8, qs, n, metric="cosine"),
-        "int8_sweep_topk B=4096": lambda: scan.int8_sweep_topk(
-            v8, vs, vsq8, q8, qmeta, n, k=K + 6, metric="cosine", bt=256,
-            nt=1024),
-        "int8_packed_topk B=4096": lambda: scan.int8_packed_bank(
-            v8, -vk8, q8, n),
-    }
-    times = {}
-    for label, fn in floors.items():
-        times[label] = time_ms(fn)
-        say("probe", stage="floor", what=label, ms=times[label])
-    bf16_floor = times["mm_only B=4096 N=31744 (bucket_topk's shape)"]
-    int8_floor = times["matmul_min B=4096 (r5c)"]
-    for label, floor in (("bucket_topk B=4096", bf16_floor),
-                         ("exact_topk_sweep B=4096", bf16_floor),
-                         ("int8_bucket_topk B=4096", int8_floor),
-                         ("int8_sweep_topk B=4096", int8_floor),
-                         ("int8_packed_topk B=4096", int8_floor)):
-        say("probe", stage="epilogue", kernel=label, kernel_ms=times[label],
-            floor_ms=floor, epilogue_ms=times[label] - floor)
+    for label, call in floor_calls(x).items():
+        out = call()
+        torch.cuda.synchronize()
+        check(tuple(out.shape) == (call.args[0].shape[0], 128) and
+              bool(torch.isfinite(out.float()).all()),
+              f"{label}: output of shape {tuple(out.shape)} or not finite")
+        say("probe", stage="floor", what=label, ms=floor_ms[label])
+    bf16_floor = floor_ms["mm_only_b4096_n31744"]
+    int8_floor = floor_ms["matmul_min_b4096_nt2048"]
+    for name, floor in (("bucket_topk", bf16_floor),
+                        ("exact_topk_sweep", bf16_floor),
+                        ("int8_bucket_topk", int8_floor),
+                        ("int8_sweep_topk", int8_floor),
+                        ("int8_packed_topk", int8_floor)):
+        ms = records[name]["ms"]
+        say("probe", stage="epilogue", kernel=f"{name} B=4096",
+            kernel_ms=ms, floor_ms=floor, epilogue_ms=ms - floor)
     del x
 
     # (b) the families, measured with the ported harness
@@ -962,14 +901,14 @@ def main() -> int:
     check_scan_kernels(torch, data, records)
     check_sweep_kernels(torch, data, records)
     check_packed_kernel(torch, data, records)
-    check_probe_kernels(torch, data, records)
+    floor_ms = check_probe_kernels(torch, data, records)
     torch.cuda.empty_cache()
 
     launches = main_path(torch, data)
     torch.cuda.empty_cache()
     api_launches = api_path(torch, data)
     torch.cuda.empty_cache()
-    probe_launches = probe_path(torch, data)
+    probe_launches = probe_path(torch, data, records, floor_ms)
     out = []
     for name in KERNELS:
         rec = records[name]

@@ -18,7 +18,10 @@
 //     min:   out[b, j] = min over s < g of q_b . v[N_used - nt + 128 s + j]
 //
 // Bound on the H100: tensor-core operations, 2*B*N*D of them; the epilogues
-// are one add (colsum) or one compare (min) per product. These kernels are
+// are one add (colsum) or one compare (min) per product. For last_tile that is
+// the bound of the tile loop over every row, which the floor runs by design;
+// the output alone depends on the last nt rows (min) or 128 rows (store),
+// whose products would take 1/15 or 1/244 of that at N = 31,232. These are
 // yardsticks: each is "the port's own tile loop without selection", so a scan
 // kernel's time minus its floor's is what its epilogue costs. Design: a block
 // owns 64 queries and walks the 128-row tiles of one corpus split (the

@@ -386,36 +386,16 @@ def finish_layer(dev, member_rows: np.ndarray) -> np.ndarray:
                     NONE).astype(np.int32)
 
 
-def _layers_stacked_fused(vectors, mem_s: np.ndarray, n_s: np.ndarray, *,
-                          cap: int, kq: int, tile: int, metric: Metric,
-                          precision: str):
-    """_layer_fused over P stacked member sets, one set after another (the
-    reference vmaps it; the sets are independent, so the results are the
-    same). mem_s: [P, S_pad] GLOBAL row ids (-1 pad); n_s: [P] member
-    counts. Returns [P, S_pad, cap] GLOBAL ids (-1 pad) on the device."""
-    dev = vectors.device
-    s_pad = mem_s.shape[1]
-    out = []
-    for mem, nn in zip(mem_s, n_s):
-        mem_t = torch.from_numpy(mem.astype(np.int64)).to(dev)
-        sub = vectors[torch.clamp(mem_t, min=0)]
-        live = (torch.arange(s_pad, device=dev) < int(nn))[:, None]
-        sub = torch.where(live, sub, 0.0)
-        loc = _layer_fused(sub, int(nn), cap=cap, kq=kq, metric=metric,
-                           tile=tile, precision=precision)
-        out.append(torch.where(loc >= 0, mem_t[torch.clamp(loc, min=0)],
-                               NONE))
-    return torch.stack(out)
-
-
 def build_layers_stacked(vectors, members: list, *, cap: int, k_cand: int,
                          metric: Metric, precision: str = "highest") -> list:
     """Build one graph layer for MANY disjoint member sets (IVF-HNSW's
     per-cluster graphs, one level of every partition of partitioned HNSW).
-    Every set is padded to the largest one's power of two, as in the
-    reference. Returns a list of [len(members[i]), cap] adjacencies in
-    GLOBAL ids (-1 pad). When every set has at most HOST_LAYER_MAX rows,
-    the sets build on the host."""
+    Returns a list of [len(members[i]), cap] adjacencies in GLOBAL ids (-1
+    pad). When every set has at most HOST_LAYER_MAX rows, the sets build on
+    the host; else each set is one build_layer_dispatch (the reference vmaps
+    them at the largest set's padding; the sets are independent, so each
+    pads only to its own power of two), all dispatched before any is
+    fetched."""
     metric = Metric.coerce(metric)
     sizes = [len(m) for m in members]
     mx = max(sizes, default=0)
@@ -438,18 +418,12 @@ def build_layers_stacked(vectors, members: list, *, cap: int, k_cand: int,
                                 NONE).astype(np.int32))
         return out
 
-    p = len(members)
-    s_pad = _pow2_at_least(mx, 8)
-    mem_s = np.full((p, s_pad), NONE, np.int32)
-    n_s = np.zeros(p, np.int32)
-    for i, mem in enumerate(members):
-        mem_s[i, : len(mem)] = np.asarray(mem, np.int32)
-        n_s[i] = len(mem)
-    stacked = _layers_stacked_fused(
-        vectors, mem_s, n_s, cap=cap, kq=min(k_cand + 1, s_pad),
-        tile=min(BUILD_TILE, s_pad), metric=metric,
-        precision=precision).cpu().numpy().astype(np.int32)
-    return [stacked[i, : sizes[i]] for i in range(p)]
+    pending = [build_layer_dispatch(vectors, mem, cap=cap, k_cand=k_cand,
+                                    metric=metric, precision=precision)
+               if len(mem) > 1 else None for mem in members]
+    return [finish_layer(*job) if job is not None
+            else np.full((s, cap), NONE, np.int32)
+            for job, s in zip(pending, sizes)]
 
 
 # ---------------------------------------------------------------------------

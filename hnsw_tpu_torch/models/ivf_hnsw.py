@@ -37,8 +37,6 @@ from hnsw_tpu_torch.types import Corpus
 class IVFHNSWIndex(ANNIndex):
     family = "ivf_hnsw"
 
-    qps_scan_safe = False  # hop-loop program (the reference harness's flag)
-
     # same budget rule as HNSWIndex for the packed-neighbourhood bf16 table
     PACK_BYTES_CAP = 6 << 30
 

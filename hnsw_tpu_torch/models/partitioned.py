@@ -34,22 +34,16 @@ from hnsw_tpu_torch.types import Corpus, Metric, round_up
 class PartitionedHNSWIndex(ANNIndex):
     family = "partitioned_hnsw"
 
-    qps_scan_safe = False  # hop-loop program (the reference harness's flag)
-
     # same budget rule as HNSWIndex for the packed-neighbourhood table
     PACK_BYTES_CAP = 6 << 30
     ENTRY_SAMPLE_PER_PARTITION = 256
     SEEDS_PER_PARTITION = 4
 
     def __init__(self, corpus: Corpus, *, num_partitions: int,
-                 vectors_p, v_sq_p, rows_p, adj0_p, adj_upper_p, entries_p,
+                 rows_p, adj0_p, adj_upper_p, entries_p,
                  m: int, m0: int, ef_construction: int, seed: int = 42):
         super().__init__(corpus)
         self.num_partitions = num_partitions
-        # the stacked shard rows are what the reference's multi-device
-        # search shards across chips (ROADMAP §A12)
-        self.vectors_p = vectors_p       # [P, S, D]
-        self.v_sq_p = v_sq_p             # [P, S]
         self.rows_p = rows_p             # [P, S] global rows (-1 pad)
         self.adj0_p = adj0_p             # [P, S, M0] local ids
         self.adj_upper_p = adj_upper_p   # [P, L, S, M]
@@ -165,26 +159,14 @@ class PartitionedHNSWIndex(ANNIndex):
         def arr(name):
             return torch.from_numpy(np.array(a[name], dtype=np.int32)).to(dev)
 
-        rows_p = arr("rows_p")
-        vecs, vsq = _stack_shards(corpus.vectors, corpus.sq_norms, rows_p)
         return cls(
             corpus, num_partitions=int(p["num_partitions"]),
-            vectors_p=vecs, v_sq_p=vsq, rows_p=rows_p,
+            rows_p=arr("rows_p"),
             adj0_p=arr("adj0_p"), adj_upper_p=arr("adj_upper_p"),
             entries_p=arr("entries_p"),
             m=int(p["M"]), m0=int(p["M0"]),
             ef_construction=int(p["ef_construction"]),
             seed=int(p.get("seed", 42)))
-
-
-def _stack_shards(vectors, v_sq, rows_p):
-    """[P, S] global rows -> ([P, S, D], [P, S]) stacked shard arrays on the
-    corpus's device (pad rows -1 -> zero vectors)."""
-    ok = rows_p >= 0
-    r = torch.clamp(rows_p, min=0).long()
-    vecs = torch.where(ok[:, :, None], vectors[r], 0.0)
-    vsq = torch.where(ok, v_sq[r], 0.0)
-    return vecs, vsq
 
 
 def build_partitioned_hnsw(
@@ -199,7 +181,7 @@ def build_partitioned_hnsw(
     seed: int = DEFAULTS["seed"],
     shuffle: bool = True,
     progress=None,             # callable(stage: str, fraction: float);
-                               # stages "stack_l{l}", "bridge_l{l}", "gather"
+                               # stages "stack_l{l}", "bridge_l{l}"
     device=None,
     **_ignored,
 ) -> PartitionedHNSWIndex:
@@ -283,14 +265,9 @@ def build_partitioned_hnsw(
             top = int(levels[i].max())
             entries[i] = int(np.nonzero(levels[i] >= top)[0][0])
 
-    _tick("gather", 0.0)
     dev = corpus.device
-    rows_t = torch.from_numpy(rows_p).to(dev)
-    vecs, vsq = _stack_shards(corpus.vectors, corpus.sq_norms, rows_t)
-    _tick("gather", 1.0)
-
     return PartitionedHNSWIndex(
-        corpus, num_partitions=p, vectors_p=vecs, v_sq_p=vsq, rows_p=rows_t,
+        corpus, num_partitions=p, rows_p=torch.from_numpy(rows_p).to(dev),
         adj0_p=torch.from_numpy(adj0).to(dev),
         adj_upper_p=torch.from_numpy(adju).to(dev),
         entries_p=torch.from_numpy(entries).to(dev),

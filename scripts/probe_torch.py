@@ -11,8 +11,9 @@ Stages (all by default):
            31,744-row pack; int8 matmul_only (r5a) and matmul_min (r5c) at
            B=4096, nt=2048. The probes' bt / nt sweeps have no counterpart:
            the CUDA floors run one 64 x 128 tile loop.
-  library  r4f's NT and NN torch.matmul + column-group sum at B=1024, and
-           torch._int_mm + slice / min at B=4096.
+  library  one PyTorch call per floor reading: r4f's NT and NN
+           torch.matmul + column-group sum, and torch._int_mm + slice / min
+           at B=4096.
   bucket   bucket_topk (B=1024, r4e / r4f), int8_bucket_topk and
            int8_packed_topk (B=4096, r5a), k=10, whole wrappers.
   int8     r4e's FlatIndex int8_fetch in {None, 16, 10} sweep: recall@10
@@ -33,7 +34,6 @@ one JSON line carrying the card's name and power limit. Needs a CUDA card.
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -42,9 +42,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
+from hnsw_tpu_torch.bench.kernels import (  # noqa: E402  (sets TF32 off)
+    FLOOR_NT, floor_calls, median_ms, probe_operands)
+
 STAGES = ("floor", "library", "bucket", "int8", "part", "ivfh")
 N, DIM, SEED, K = 31173, 768, 42, 10
-NT = 2048
 
 
 def card() -> str:
@@ -61,79 +63,15 @@ def log(**kw):
     print(json.dumps({"card": CARD, **kw}), flush=True)
 
 
-def median_ms(fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def operands(data):
-    """The probes' operands on the card (see chip_smoke.floor_inputs)."""
-    from hnsw_tpu_torch.models.flat import quantize_rows
-    from hnsw_tpu_torch.ops import scan
-    from hnsw_tpu_torch.types import Corpus
-
-    corpus = Corpus.from_array(data, metric="cosine")
-    pad = torch.nn.functional.pad
-    n_pad = -(-corpus.n_pad // 4096) * 4096
-    v = pad(corpus.vectors, (0, 0, 0, n_pad - corpus.n_pad))
-    vb = v.to(torch.bfloat16)
-    v8, vs = quantize_rows(v)
-    qf = corpus.pad_queries(data[:4096])
-    q8, qs = quantize_rows(qf)
-    vsq = pad(corpus.sq_norms, (0, n_pad - corpus.n_pad))
-    return dict(
-        corpus=corpus, n=corpus.n, q1024=qf[:1024].to(torch.bfloat16),
-        q4096=qf.to(torch.bfloat16), v=vb, vT=vb.T.contiguous(),
-        v31744=vb[:31744].contiguous(), vsq=vsq,
-        vkey31744=scan.bf16_vkey(vsq[:31744], "cosine"), q8=q8, v8=v8,
-        vs=vs, qmeta=torch.stack([qs, (qf * qf).sum(1)], dim=1))
-
-
 def stage_floor(x):
-    from hnsw_tpu_torch.ops import probes
-    for variant, fn in (
-            ("mm_only_b1024", lambda: probes.mm_only(x["q1024"], x["v"])),
-            ("mm_only_nt_b1024", lambda: probes.mm_only_nt(x["q1024"],
-                                                           x["v"])),
-            ("mm_only_kmajor_b1024", lambda: probes.mm_only_kmajor(
-                x["q1024"], x["vT"])),
-            ("mm_only_b4096_n31744", lambda: probes.mm_only(
-                x["q4096"], x["v31744"])),
-            ("matmul_only_b4096_nt2048", lambda: probes.matmul_only(
-                x["q8"], x["v8"], nt=NT)),
-            ("matmul_min_b4096_nt2048", lambda: probes.matmul_min(
-                x["q8"], x["v8"], nt=NT))):
-        log(stage="floor", variant=variant, ms=median_ms(fn))
+    for variant, call in floor_calls(x).items():
+        log(stage="floor", variant=variant, ms=median_ms(call))
 
 
 def stage_library(x):
-    q, v, vT = x["q1024"], x["v"], x["vT"]
-    b = q.shape[0]
-    q8, v8t = x["q8"], x["v8"].T
-    lo = x["v8"].shape[0] - NT
-    b8 = q8.shape[0]
-    for variant, fn in (
-            ("matmul_NT_colsum_b1024",
-             lambda: torch.matmul(q, v.T).float().reshape(b, -1, 128).sum(1)),
-            ("matmul_NN_colsum_b1024",
-             lambda: torch.matmul(q, vT).float().reshape(b, -1, 128).sum(1)),
-            ("int_mm_slice_b4096",
-             lambda: torch._int_mm(q8, v8t)[:, lo:lo + 128]),
-            ("int_mm_min_b4096",
-             lambda: torch._int_mm(q8, v8t)[:, lo:].reshape(
-                 b8, NT // 128, 128).amin(1))):
-        log(stage="library", variant=variant, ms=median_ms(fn, reps=10))
+    for variant, call in floor_calls(x).items():
+        log(stage="library", variant=variant,
+            ms=median_ms(call.library, reps=10))
 
 
 def stage_bucket(x):
@@ -145,10 +83,10 @@ def stage_bucket(x):
                 bt=1024, nt=1024)),
             ("int8_bucket_topk_b4096", lambda: scan.int8_bucket_topk(
                 x["v8"], x["vs"], x["vsq"], x["q8"], x["qmeta"], n, k=K,
-                metric="cosine", bt=256, nt=NT)),
+                metric="cosine", bt=256, nt=FLOOR_NT)),
             ("int8_packed_topk_b4096", lambda: scan.int8_packed_topk(
                 x["v8"], x["vs"], x["vsq"], x["q8"], x["qmeta"], n, k=K,
-                metric="cosine", bt=256, nt=NT))):
+                metric="cosine", bt=256, nt=FLOOR_NT))):
         log(stage="bucket", variant=variant, ms=median_ms(fn))
 
 
@@ -172,7 +110,6 @@ def _family(idx, data, exact, label, **kw):
 
     class View:
         """r5c's V: fixed search options over a built index."""
-        qps_scan_safe = False
         corpus = idx.corpus
 
         def search_batch(self, q, k, mode=None):
@@ -232,7 +169,6 @@ def main() -> int:
         print(f"probe_torch: unknown stages {sorted(unknown)}; "
               f"one of {STAGES}", file=sys.stderr)
         return 2
-    import hnsw_tpu_torch  # noqa: F401  (sets TF32 off)
     from hnsw_tpu_torch.io.datagen import generate_vectors
     from hnsw_tpu_torch.models import FlatIndex
 
@@ -240,7 +176,7 @@ def main() -> int:
     t0 = time.time()
     data = generate_vectors(N, DIM, distribution="embedding",
                             num_clusters=64, seed=SEED)
-    x = operands(data)
+    x = probe_operands(data)
     exact = FlatIndex(x["corpus"])
     torch.cuda.synchronize()
     log(stage="staged", s=time.time() - t0)

@@ -14,11 +14,14 @@ in one session, parent, change, change, parent:
     (cd <dir> && python3 <repo>/scripts/time_bank_kernels.py)
     python3 scripts/time_bank_kernels.py
 
-Needs a CUDA card; each tree builds its own kernels.
+The operands and calls come from this script's own tree
+(hnsw_tpu_torch/bench/kernels.py, loaded by its path), the kernels from the
+tree in the current directory, so a tree without that module is timed the
+same way. Needs a CUDA card; each tree builds its own kernels.
 """
 
+import importlib.util
 import os
-import statistics
 import sys
 
 sys.path.insert(0, os.getcwd())
@@ -27,62 +30,29 @@ import torch  # noqa: E402
 
 import hnsw_tpu_torch  # noqa: E402,F401  (sets TF32 off)
 from hnsw_tpu_torch.io.datagen import generate_vectors  # noqa: E402
-from hnsw_tpu_torch.models.flat import quantize_rows  # noqa: E402
-from hnsw_tpu_torch.ops import scan  # noqa: E402
-from hnsw_tpu_torch.types import Corpus  # noqa: E402
+
+_HELPER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "hnsw_tpu_torch", "bench", "kernels.py")
 
 
-def median_ms(fn, reps: int = 30) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _helper():
+    spec = importlib.util.spec_from_file_location("_scan_operands", _HELPER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_bank_kernels: no CUDA device", file=sys.stderr)
         return 1
+    kernels = _helper()
     data = generate_vectors(31173, 768, distribution="embedding",
                             num_clusters=64, seed=42)
-    c = Corpus.from_array(data)
-    pad = torch.nn.functional.pad
-    vec = pad(c.vectors.to(torch.bfloat16), (0, 0, 0, 31744 - c.n_pad))
-    vkey = scan.bf16_vkey(pad(c.sq_norms, (0, 31744 - c.n_pad)), "cosine")
-    q = c.pad_queries(data[:4096]).to(torch.bfloat16)
-    v8, vs = quantize_rows(c.vectors)
-    v8 = pad(v8, (0, 0, 0, 32768 - c.n_pad))
-    vs = pad(vs, (0, 32768 - c.n_pad))
-    vk8 = scan.int8_vkey(vs, pad(c.sq_norms, (0, 32768 - c.n_pad)), "cosine")
-    q8, qs = quantize_rows(c.pad_queries(data[:4096]))
-    vsq = pad(c.sq_norms, (0, 31744 - c.n_pad))
-    vsq8 = pad(c.sq_norms, (0, 32768 - c.n_pad))
-    qf = c.pad_queries(data[:4096])
-    qmeta = torch.stack([qs, (qf * qf).sum(1)], dim=1)
-    times = {
-        "bucket_bank_ms": lambda: scan.bucket_bank(vec, vkey, q, c.n,
-                                                   metric="cosine"),
-        "int8_bucket_bank_ms": lambda: scan.int8_bucket_bank(
-            v8, vk8, vs, q8, qs, c.n, metric="cosine"),
-        "exact_topk_sweep_ms": lambda: scan.exact_topk_sweep(
-            vec, vsq, q, c.n, k=10, metric="cosine", bt=512),
-        "int8_sweep_topk_ms": lambda: scan.int8_sweep_topk(
-            v8, vs, vsq8, q8, qmeta, c.n, k=16, metric="cosine", bt=256,
-            nt=1024),
-        "int8_packed_bank_ms": lambda: scan.int8_packed_bank(v8, -vk8, q8,
-                                                             c.n),
-    }
-    print(os.getcwd(), " ".join(f"{name} {median_ms(fn)}"
-                                for name, fn in times.items()), flush=True)
+    calls = kernels.scan_calls(kernels.probe_operands(data))
+    print(os.getcwd(), " ".join(
+        f"{name}_ms {kernels.median_ms(fn, reps=30)}"
+        for name, fn in calls.items()), flush=True)
     return 0
 
 

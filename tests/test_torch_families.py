@@ -68,6 +68,17 @@ J_BUILD = {"partitioned_hnsw": j_build_partitioned,
            "ivf_hnsw": j_build_ivf_hnsw}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """The port's builds here are many small CPU operators: on two threads
+    they run as fast as on every core, and leave the other cores to the
+    test workers that share the host (a timing test among them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def corpora():
     data = make_clustered(600, 48, k=6, seed=3)
