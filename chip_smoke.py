@@ -20,14 +20,17 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      grown by one wave insert of 1,024;
   6. the probe path at full width (the twin of scripts/_probe_r4e.py, r4f,
      r5a and r5c): the four matmul floors run at the probes' shapes, their
-     phase-3 times printed beside those of the scan kernels they bound,
-     then partitioned HNSW (8
+     phase-3 times printed beside those of the scan kernels they bound
+     (matmul_only, on the mma.sync loop, against matmul_min, on the wgmma
+     mainloop), then partitioned HNSW (8
      partitions) and IVF-HNSW (32 clusters) built, searched at B=1024
      through the hop_score kernel at hop width 256, measured with the
      ported bench harness (recall@10 against the exact flat index, QPS,
      build seconds), and saved and loaded with identical rows.
-Phases 4, 5 and 6 each zero the launch counts just before and read them just
-after; each must have run its kernels, and all eleven together. Then one
+Phase 3 prints each kernel's ptxas registers and spill bytes on its [kernel]
+lines. Phases 4, 5 and 6 each zero the launch counts just before and read
+them just after; each must have run its kernels, and all eleven together.
+Then one
 JSON line of per-kernel records, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -57,6 +60,40 @@ KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
+
+
+# the ptxas entry of each kernel: its source and a piece of its mangled name
+# (<length><name> and the template arguments)
+KERNEL_ENTRIES = {
+    "hop_score": ("hop.cu", "15hop_bf16_kernel"),
+    "hop_score_int8": ("hop.cu", "15hop_int8_kernel"),
+    "bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernel"),
+    "int8_bucket_topk": ("scan.cu", "18bucket_bank_kernelILb1E"),
+    "exact_topk_sweep": ("sweep.cu", "12sweep_kernelILb0E"),
+    "int8_sweep_topk": ("sweep.cu", "12sweep_kernelILb1E"),
+    "int8_packed_topk": ("scan.cu", "18packed_bank_kernel"),
+    "mm_only": ("probes.cu", "13colsum_kernelILb0E"),
+    "mm_only_nt": ("probes.cu", "13colsum_kernelILb0E"),
+    "mm_only_kmajor": ("probes.cu", "13colsum_kernelILb1E"),
+    "matmul_only": ("probes.cu", "16last_tile_kernel"),
+    "matmul_min": ("probes.cu", "20last_tile_min_kernel"),
+}
+
+
+def ptxas_fields(name: str) -> dict:
+    """The kernel's registers and spill bytes from this run's ptxas report
+    (the largest over its template instantiations). The wgmma kernels'
+    registers are ptxas's count at 384 threads; setmaxnreg then gives each
+    consumer warpgroup 232."""
+    from hnsw_tpu_torch.ops import _cuda
+    src, piece = KERNEL_ENTRIES[name]
+    found = [v for k, v in _cuda.kernel_resources(
+        _cuda.BUILD_LOG.get(src, "")).items() if piece in k]
+    if not found:
+        return dict(registers="not built in this run",
+                    spill_bytes="not built in this run")
+    return dict(registers=max(r for r, _ in found),
+                spill_bytes=max(s for _, s in found))
 
 
 def say(phase: str, **fields) -> None:
@@ -153,7 +190,8 @@ def check_hop_kernels(torch, records):
         say("kernel", name=name, shape=f"B={b},E={e},M0={m0},D={d},"
             f"N_pad={n_pad}", max_abs_err=max(errs),
             tol="1e-4*max|plain|", kernel_ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by)
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
+            **ptxas_fields(name))
         records[name] = dict(
             name=name, route="cuda", source="hnsw_tpu_torch/csrc/hop.cu",
             replaces=("hnsw_tpu/ops/pallas_hop.py:152" if name == "hop_score"
@@ -195,7 +233,7 @@ def check_scan_kernels(torch, data, records):
         fields = dict(name="bucket_topk", metric=metric,
                       shape=f"B={b},N_pad={n_pad},D={d},k={K}",
                       max_abs_err=err, tol=1e-4, row_agreement=agree,
-                      row_agreement_bar=0.999)
+                      row_agreement_bar=0.999, **ptxas_fields("bucket_topk"))
         if metric == "cosine":
             ms = time_ms(lambda: scan.bucket_bank(vec, vkey, q, corpus.n,
                                                   metric=metric))
@@ -245,7 +283,8 @@ def check_scan_kernels(torch, data, records):
         check(agree >= 0.999, f"int8_bucket_topk k={k}: agreement {agree}")
         say("kernel", name="int8_bucket_topk", metric="cosine",
             shape=f"B={b},N_pad={n_pad},D={d},k={k}", max_abs_err=err,
-            tol=1e-3, row_agreement=agree, row_agreement_bar=0.999)
+            tol=1e-3, row_agreement=agree, row_agreement_bar=0.999,
+            **ptxas_fields("int8_bucket_topk"))
     ms = time_ms(lambda: scan.int8_bucket_bank(
         v8, vkey, vscale, q8, qscale, corpus.n, metric="cosine"))
     plain_ms = time_ms(lambda: scan.int8_bucket_bank_plain(
@@ -257,7 +296,8 @@ def check_scan_kernels(torch, data, records):
     bms, by = bound(live * d + b * d + live * 8 + b * 4 + b * 256 * 8,
                     2 * b * live * d, INT8_OPS_S)
     say("kernel", name="int8_bucket_topk", kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bms, bound_by=by)
+        library_ms=lib_ms, bound_ms=bms, bound_by=by,
+        **ptxas_fields("int8_bucket_topk"))
     records["int8_bucket_topk"] = dict(
         name="int8_bucket_topk", route="cuda",
         source="hnsw_tpu_torch/csrc/scan.cu",
@@ -333,7 +373,7 @@ def check_sweep_kernels(torch, data, records):
             fields = dict(name=name, metric=metric,
                           shape=f"B={b},N_pad={n_pad},D={d},k={k}",
                           max_abs_err=err, tol=tol, row_agreement=agree,
-                          row_agreement_bar=0.999)
+                          row_agreement_bar=0.999, **ptxas_fields(name))
             if metric == "cosine":
                 ms = time_ms(kern)
                 plain_ms = time_ms(plain, reps=3, warmup=1)
@@ -415,7 +455,8 @@ def check_packed_kernel(torch, data, records):
                   f"int8_packed_topk {metric} k={k}: agreement {agree}")
             say("kernel", name="int8_packed_topk", metric=metric,
                 shape=f"B={b},N_pad={n_pad},D={d},k={k}", max_abs_err=err,
-                tol=0, row_agreement=agree, row_agreement_bar=0.999)
+                tol=0, row_agreement=agree, row_agreement_bar=0.999,
+                **ptxas_fields("int8_packed_topk"))
         if metric == "cosine":
             ms = time_ms(lambda: scan.int8_packed_bank(v8, nvkey, q8,
                                                        corpus.n))
@@ -429,7 +470,7 @@ def check_packed_kernel(torch, data, records):
                             2 * b * live * d, INT8_OPS_S)
             say("kernel", name="int8_packed_topk", kernel_ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                bound_by=by)
+                bound_by=by, **ptxas_fields("int8_packed_topk"))
             records["int8_packed_topk"] = dict(
                 name="int8_packed_topk", route="cuda",
                 source="hnsw_tpu_torch/csrc/scan.cu",
@@ -496,7 +537,8 @@ def check_probe_kernels(torch, data, records):
         rows = call.args[1].shape[1 if "kmajor" in label else 0]
         say("kernel", name=label, shape=f"B={b},N={rows},D={d}",
             nt=call.kwargs.get("nt"), max_abs_err=err, tol=tol, kernel_ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, library=lib_what, bound_ms=bms, bound_by=by)
+            library_ms=lib_ms, library=lib_what, bound_ms=bms, bound_by=by,
+            **ptxas_fields(call.kernel.__name__))
         if name is not None:
             records[name] = dict(
                 name=name, route="cuda",
@@ -789,16 +831,29 @@ def probe_path(torch, data, records, floor_ms):
               bool(torch.isfinite(out.float()).all()),
               f"{label}: output of shape {tuple(out.shape)} or not finite")
         say("probe", stage="floor", what=label, ms=floor_ms[label])
+    # The floors of the mma.sync loop (csrc/tile.cuh) bound the scan kernels
+    # that run it; matmul_min runs the Hopper mainloop (csrc/wgmma.cuh), and
+    # beside matmul_only (the same s8 products on the old loop) it measures
+    # the new loop against the old. bucket_topk runs the new loop, which has
+    # no bf16 floor, so mm_only no longer bounds it.
     bf16_floor = floor_ms["mm_only_b4096_n31744"]
-    int8_floor = floor_ms["matmul_min_b4096_nt2048"]
-    for name, floor in (("bucket_topk", bf16_floor),
-                        ("exact_topk_sweep", bf16_floor),
-                        ("int8_bucket_topk", int8_floor),
-                        ("int8_sweep_topk", int8_floor),
-                        ("int8_packed_topk", int8_floor)):
+    old_int8 = floor_ms["matmul_only_b4096_nt2048"]
+    new_int8 = floor_ms["matmul_min_b4096_nt2048"]
+    say("probe", stage="loop", old="matmul_only (tile.cuh, mma.sync)",
+        old_ms=old_int8, new="matmul_min (wgmma.cuh, TMA + wgmma)",
+        new_ms=new_int8, old_over_new=old_int8 / new_int8)
+    for name, floor, floor_name in (
+            ("exact_topk_sweep", bf16_floor, "mm_only"),
+            ("int8_bucket_topk", old_int8, "matmul_only"),
+            ("int8_sweep_topk", old_int8, "matmul_only"),
+            ("int8_packed_topk", old_int8, "matmul_only")):
         ms = records[name]["ms"]
-        say("probe", stage="epilogue", kernel=f"{name} B=4096",
-            kernel_ms=ms, floor_ms=floor, epilogue_ms=ms - floor)
+        say("probe", stage="epilogue", kernel=f"{name} B=4096", loop="tile.cuh",
+            kernel_ms=ms, floor=floor_name, floor_ms=floor,
+            epilogue_ms=ms - floor)
+    say("probe", stage="epilogue", kernel="bucket_topk B=4096", loop="wgmma.cuh",
+        kernel_ms=records["bucket_topk"]["ms"],
+        floor="none (mm_only runs tile.cuh)")
     del x
 
     # (b) the families, measured with the ported harness

@@ -1,4 +1,8 @@
-// Matmul floors: the tile loop of tile.cuh with the probes' trivial epilogues.
+// Matmul floors: a scan's product loop with the probes' trivial epilogues.
+// colsum and the store floor run the mma.sync loop of tile.cuh; the min floor
+// runs the Hopper mainloop of wgmma.cuh (TMA ring, wgmma, resident query
+// block), so matmul_only against matmul_min is the old loop against the new
+// one in one run.
 //
 // Replaces the TPU probe kernels
 //   scripts/_probe_r4e.py::mm_only (mm_kernel)              -> colsum, NT
@@ -30,11 +34,21 @@
 // per thread and writes one partial per split, summed in split order by
 // colsum_merge. last_tile aligns its splits to nt-row tiles, so the last one
 // lies in the last split, whose block alone writes. Every product goes
-// through the inline asm volatile mma.sync of tile.cuh, so nvcc cannot drop
-// the products of the tiles whose results are not kept (Mosaic did, on the
-// TPU, for matmul_only).
+// through inline asm volatile (mma.sync in tile.cuh, wgmma in wgmma.cuh), so
+// nvcc cannot drop the products of the tiles whose results are not kept
+// (Mosaic did, on the TPU, for matmul_only).
+//
+// matmul_min on the H100 (B = 4096, nt = 2048, 32,768 x 768 s8): bound 0.099
+// ms of s8 tensor-core operations over the live rows; the tile.cuh loop took
+// 0.813 ms, torch._int_mm + the min 0.400. The wgmma kernel keeps each
+// thread's 32 running minima in registers and writes them once; its time is
+// the mainloop's (the min is one instruction per product on 1/16 of the
+// tiles): about 0.25 ms, 41% of the s8 peak (PERF.md).
+
+#include <limits.h>
 
 #include "tile.cuh"
+#include "wgmma.cuh"
 
 using namespace tile;
 
@@ -89,7 +103,7 @@ __global__ void colsum_merge_kernel(const float* __restrict__ part, float* __res
     out[i] = s;
 }
 
-template <bool MIN>
+// matmul_only: the store floor, on the tile loop of tile.cuh.
 __global__ void __launch_bounds__(kThreads)
 last_tile_kernel(const uint8_t* __restrict__ v8, const uint8_t* __restrict__ q8,
                  int* __restrict__ out, int B, int N_used, int D, int nt, int splits) {
@@ -101,35 +115,60 @@ last_tile_kernel(const uint8_t* __restrict__ v8, const uint8_t* __restrict__ q8,
     int u_begin, u_end;
     split_range(N_used / nt, split, splits, u_begin, u_end);
 
-    float mn[kPairs];
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) mn[i] = 3.0e38f;
-
     product_tiles<true>(v8, q8, B, D, q0, u_begin * group, u_end * group, smem,
                         [&](int tile, const float* Cs) {
-        if (tile < t_last) return;                   // block-uniform
-        if (MIN) {
-#pragma unroll
-            for (int i = 0; i < kPairs; ++i) {
-                const int e = tid + i * kThreads;
-                mn[i] = fminf(mn[i], Cs[(e >> 7) * LDC + (e & (BN - 1))]);
-            }
-        } else if (tile == t_last) {
-#pragma unroll
-            for (int i = 0; i < kPairs; ++i) {
-                const int e = tid + i * kThreads, row = q0 + (e >> 7);
-                // s32 dots, exact in f32 below 2^24
-                if (row < B) out[(long long)row * BN + (e & (BN - 1))] =
-                    (int)Cs[(e >> 7) * LDC + (e & (BN - 1))];
-            }
-        }
-    });
-
-    if (MIN && split == splits - 1) {
+        if (tile != t_last) return;                  // block-uniform
 #pragma unroll
         for (int i = 0; i < kPairs; ++i) {
             const int e = tid + i * kThreads, row = q0 + (e >> 7);
-            if (row < B) out[(long long)row * BN + (e & (BN - 1))] = (int)mn[i];
+            // s32 dots, exact in f32 below 2^24
+            if (row < B) out[(long long)row * BN + (e & (BN - 1))] =
+                (int)Cs[(e >> 7) * LDC + (e & (BN - 1))];
+        }
+    });
+}
+
+// matmul_min: the min floor, on the Hopper mainloop of wgmma.cuh. The running
+// min of each (query, column) pair is an exact int32 in the registers beside
+// the s32 accumulators (32 per consumer thread); the products of every tile
+// are formed by inline asm volatile wgmma, which nvcc cannot drop.
+__global__ void __launch_bounds__(wg::kThreads, 1)
+last_tile_min_kernel(__grid_constant__ const CUtensorMap qmap,
+                     __grid_constant__ const CUtensorMap vmap, int* __restrict__ out, int B,
+                     int N_used, int nt, int nk, int stages, int q_resident, int splits) {
+    extern __shared__ uint8_t smem_raw[];
+    const wg::Ring ring = wg::setup(smem_raw, nk, stages, q_resident);
+    const int q0 = blockIdx.x * wg::BM, split = blockIdx.y;
+    const int group = nt / wg::BN;
+    const int t_last = N_used / wg::BN - group;
+    int u_begin, u_end;
+    split_range(N_used / nt, split, splits, u_begin, u_end);
+
+    if (threadIdx.x < 128) {
+        wg::producer_regs();
+        if (threadIdx.x == 0)
+            wg::produce(ring, &qmap, &vmap, q0, u_begin * group, u_end * group, wg::KB);
+    } else {
+        wg::consumer_regs();
+        int mn[wg::kAcc];
+#pragma unroll
+        for (int i = 0; i < wg::kAcc; ++i) mn[i] = INT_MAX;
+        wg::consume<int>(ring, u_begin * group, u_end * group, [](int) {},
+                         [&](auto& acc, int tile) {
+            if (tile < t_last) return;               // block-uniform
+#pragma unroll
+            for (int i = 0; i < wg::kAcc; ++i) mn[i] = min(mn[i], acc[i]);
+        });
+        if (split != splits - 1) return;
+        const wg::Frag f = wg::frag();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int row = q0 + f.row0 + 8 * h;
+            if (row >= B) continue;
+#pragma unroll
+            for (int j = 0; j < wg::WN / 8; ++j)
+                *reinterpret_cast<int2*>(out + (long long)row * BN + f.col0 + 8 * j) =
+                    make_int2(mn[4 * j + 2 * h], mn[4 * j + 2 * h + 1]);
         }
     }
 }
@@ -167,15 +206,23 @@ extern "C" int last_tile_int8(const void* v8, const void* q8, void* out, int B, 
     if (splits < 1 || nt < BN || nt % BN || N_used < nt || N_used % nt || D % KB ||
         splits > N_used / nt)
         return (int)cudaErrorInvalidValue;
-    if (B > 0) {
-        const dim3 grid((B + BM - 1) / BM, splits);
-        cudaStream_t s = (cudaStream_t)stream;
-        if (take_min)
-            last_tile_kernel<true><<<grid, kThreads, 0, s>>>((const uint8_t*)v8, (const uint8_t*)q8,
-                                                             (int*)out, B, N_used, D, nt, splits);
-        else
-            last_tile_kernel<false><<<grid, kThreads, 0, s>>>((const uint8_t*)v8, (const uint8_t*)q8,
-                                                              (int*)out, B, N_used, D, nt, splits);
+    if (B <= 0) return (int)cudaGetLastError();
+    const dim3 grid((B + BM - 1) / BM, splits);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (!take_min) {
+        last_tile_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)v8, (const uint8_t*)q8,
+                                                   (int*)out, B, N_used, D, nt, splits);
+        return (int)cudaGetLastError();
     }
+    const wg::Plan p = wg::plan(D);
+    CUtensorMap qmap, vmap;
+    int err = wg::encode_rows(&qmap, q8, D, B, wg::BM, true);
+    if (err == 0) err = wg::encode_rows(&vmap, v8, D, N_used, wg::BN, true);
+    if (err != 0) return err;
+    err = (int)cudaFuncSetAttribute(last_tile_min_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != 0) return err;
+    last_tile_min_kernel<<<grid, wg::kThreads, p.smem, s>>>(
+        qmap, vmap, (int*)out, B, N_used, nt, D / wg::KB, p.stages, p.q_resident, splits);
     return (int)cudaGetLastError();
 }

@@ -24,16 +24,36 @@
 // bank.
 //
 // Bound on the H100: tensor-core operations, 2*B*N_pad*D of them, plus a
-// per-element epilogue (the key and the best-two update). Design, kept simple
-// for this first version: a block owns 64 queries and walks the 128-row
-// corpus tiles of one split of the corpus (the loop of tile.cuh). A 128-row
-// tile holds exactly one row of each bucket, so the running best two of each
-// (query, bucket) pair are updated by one insert per tile; they live in
-// registers (32 pairs per thread). The TPU's sequential corpus-tile axis
+// per-element epilogue (the key and the best-two update). A block owns 64
+// queries and walks the 128-row corpus tiles of one split of the corpus, in
+// increasing order. A 128-row tile holds exactly one row of each bucket, so
+// the running best two of each (query, bucket) pair are updated by one insert
+// per tile; they live in registers. The TPU's sequential corpus-tile axis
 // becomes the loop inside the block plus S splits across blocks; each split
 // writes a partial bank and bucket_merge folds the splits in order with the
 // reference's _merge_pair2 rule, so an earlier row wins a tie as it does
 // there.
+//
+// bf16 (bucket_bank_wgmma_kernel, redesigned for Hopper): the mainloop of
+// wgmma.cuh. Its mma.sync predecessor (6.672 ms at B = 4096 over the
+// 31,744-row pack on the H100, bound 0.199 ms of bf16 tensor-core operations,
+// torch.matmul + torch.topk 3.376 ms) spent 77% of its time in the epilogue:
+// 4 registers per pair (255 registers and spills), each product read back
+// from a shared-memory copy of the tile, a run-time metric branch per
+// element, and one block per SM with nothing to hide the epilogue behind.
+// Now two consumer warpgroups each own 64 buckets (m64n64 wgmma, 32 pairs a
+// thread), the bank is kept in the accumulator layout with both kept rows of
+// a pair as 16-bit tile indices in one register (3 registers a pair), keys
+// are formed from the accumulator registers where they lie, the metric is a
+// template parameter, and each tile's insert runs once the next tile's first
+// products are queued (two accumulator sets; ptxas waits for them before the
+// insert, and the other consumer keeps the tensor cores busy); the vkey
+// values of the thread's 16 columns are loaded half a tile before they are
+// needed. Keys and tie rule are those of bucket_bank_kernel: full f32 keys,
+// insert2's < and <=, tiles in order. A register-light bank alone, on the
+// old loop, took the kernel from 6.5 to 1.6 ms; the new loop to 0.5 (PERF.md).
+//
+// int8 (bucket_bank_kernel<true>) keeps the mma.sync loop inline.
 //
 // The packed kernel keeps, per (query, bucket), the two smallest packed int32
 // keys over the nt/128 sub-tiles of each nt-row tile: they are unique within
@@ -45,6 +65,7 @@
 // one __fmul_rn and one __fadd_rn, bit for bit those of the plain version.
 
 #include "tile.cuh"
+#include "wgmma.cuh"
 
 using namespace tile;
 
@@ -311,6 +332,131 @@ packed_bank_kernel(const uint8_t* __restrict__ v8, const float* __restrict__ nvk
     });
 }
 
+// insert2 on a bank whose two kept rows are 16-bit tile indices within the
+// split, packed in one register: best in the low half, second in the high.
+__device__ __forceinline__ void insert2_packed(float x, uint32_t ti, float& d1, float& d2,
+                                               uint32_t& rr) {
+    const bool b1 = x < d1, b2 = x <= d2;
+    const uint32_t rr1 = __byte_perm(rr, ti, 0x1054);   // (ti, old best)
+    const uint32_t rr2 = __byte_perm(rr, ti, 0x5410);   // (old best, ti)
+    d2 = b1 ? d1 : (b2 ? x : d2);
+    d1 = b1 ? x : d1;
+    rr = b1 ? rr1 : (b2 ? rr2 : rr);
+}
+
+constexpr uint32_t NO_TILE = 0xFFFFu;
+
+// The bf16 bank on the Hopper mainloop of wgmma.cuh. Consumer thread state:
+// 32 (query, bucket) pairs, each two f32 keys and one register holding both
+// kept rows as 16-bit tile indices (the bucket is the column, fixed by the
+// register's position), so 3 registers a pair where bucket_bank_kernel keeps
+// 4; 32 per accumulator set, two sets; the 16 vkey values of the thread's
+// columns of the next tile to finish. The metric is a template parameter.
+template <int METRIC>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+bucket_bank_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                         __grid_constant__ const CUtensorMap vmap, const float* __restrict__ vkey,
+                         float* __restrict__ part_d, int* __restrict__ part_r, int B, int N_pad,
+                         int n, int nk, int stages, int q_resident, int splits) {
+    extern __shared__ uint8_t smem_raw[];
+    const wg::Ring ring = wg::setup(smem_raw, nk, stages, q_resident);
+    const int q0 = blockIdx.x * wg::BM, split = blockIdx.y;
+    const int ntiles_all = N_pad / wg::BN;
+    const int t_begin = (int)((long long)split * ntiles_all / splits);
+    const int t_end = (int)((long long)(split + 1) * ntiles_all / splits);
+
+    if (threadIdx.x < 128) {
+        wg::producer_regs();
+        if (threadIdx.x == 0)
+            wg::produce(ring, &qmap, &vmap, q0, t_begin, t_end, wg::KB / 2);
+    } else {
+        wg::consumer_regs();
+        const wg::Frag f = wg::frag();
+        float d1[wg::kAcc], d2[wg::kAcc];
+        uint32_t rr[wg::kAcc];
+#pragma unroll
+        for (int i = 0; i < wg::kAcc; ++i) { d1[i] = BIG; d2[i] = BIG; rr[i] = 0xFFFFFFFFu; }
+        float2 vk[wg::WN / 8];
+
+        wg::consume<float>(ring, t_begin, t_end,
+                           [&](int tile) {
+            if constexpr (METRIC != DOT) {
+#pragma unroll
+                for (int j = 0; j < wg::WN / 8; ++j)
+                    vk[j] = __ldg(reinterpret_cast<const float2*>(vkey + tile * wg::BN +
+                                                                  f.col0 + 8 * j));
+            }
+        },
+                           [&](auto& acc, int tile) {
+            const uint32_t ti = (uint32_t)(tile - t_begin);
+            const int lim = n - tile * wg::BN - f.col0;   // column offsets below lim are live
+#pragma unroll
+            for (int j = 0; j < wg::WN / 8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int i = 4 * j + 2 * h + e;
+                        const float dot = acc[i];
+                        const float vkv = e ? vk[j].y : vk[j].x;
+                        float key;
+                        if (METRIC == COSINE) key = __fmul_rn(-dot, vkv);
+                        else if (METRIC == EUCLIDEAN) key = vkv - 2.f * dot;
+                        else key = -dot;
+                        insert2_packed(8 * j + e < lim ? key : BIG, ti, d1[i], d2[i], rr[i]);
+                    }
+        });
+
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int q = q0 + f.row0 + 8 * h;
+            if (q >= B) continue;
+            const long long base = ((long long)split * B + q) * (2 * wg::BN);
+#pragma unroll
+            for (int j = 0; j < wg::WN / 8; ++j) {
+                const int c = f.col0 + 8 * j, i = 4 * j + 2 * h;
+                int r1[2], r2[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const uint32_t lo = rr[i + e] & NO_TILE, hi = rr[i + e] >> 16;
+                    r1[e] = lo == NO_TILE ? -1 : (t_begin + (int)lo) * wg::BN + c + e;
+                    r2[e] = hi == NO_TILE ? -1 : (t_begin + (int)hi) * wg::BN + c + e;
+                }
+                *reinterpret_cast<float2*>(part_d + base + c) = make_float2(d1[i], d1[i + 1]);
+                *reinterpret_cast<float2*>(part_d + base + wg::BN + c) =
+                    make_float2(d2[i], d2[i + 1]);
+                *reinterpret_cast<int2*>(part_r + base + c) = make_int2(r1[0], r1[1]);
+                *reinterpret_cast<int2*>(part_r + base + wg::BN + c) = make_int2(r2[0], r2[1]);
+            }
+        }
+    }
+}
+
+// The bf16 bank: tensor maps, shared memory, launch. Every split must hold
+// fewer than 65,536 tiles (16-bit tile indices; the wrapper plans so).
+int launch_bank_bf16(const void* vectors, const void* vkey, const void* queries, void* part_d,
+                     void* part_r, int B, int N_pad, int D, int n, int metric, int splits,
+                     cudaStream_t stream) {
+    const int ntiles = N_pad / wg::BN;
+    if ((ntiles + splits - 1) / splits >= (int)NO_TILE + 1) return (int)cudaErrorInvalidValue;
+    const int row_bytes = 2 * D;
+    const wg::Plan p = wg::plan(row_bytes);
+    CUtensorMap qmap, vmap;
+    int err = wg::encode_rows(&qmap, queries, row_bytes, B, wg::BM, false);
+    if (err == 0) err = wg::encode_rows(&vmap, vectors, row_bytes, N_pad, wg::BN, false);
+    if (err != 0) return err;
+    auto kernel = metric == COSINE      ? bucket_bank_wgmma_kernel<COSINE>
+                  : metric == EUCLIDEAN ? bucket_bank_wgmma_kernel<EUCLIDEAN>
+                                        : bucket_bank_wgmma_kernel<DOT>;
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != 0) return err;
+    const dim3 grid((B + wg::BM - 1) / wg::BM, splits);
+    kernel<<<grid, wg::kThreads, p.smem, stream>>>(
+        qmap, vmap, (const float*)vkey, (float*)part_d, (int*)part_r, B, N_pad, n,
+        row_bytes / wg::KB, p.stages, p.q_resident, splits);
+    return (int)cudaGetLastError();
+}
+
 __global__ void bucket_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_r,
                                     float* __restrict__ out_d, int* __restrict__ out_r, int B,
                                     int splits) {
@@ -331,40 +477,28 @@ __global__ void bucket_merge_kernel(const float* __restrict__ part_d, const int*
     out_r[o + BN] = ai2;
 }
 
-int launch_bank(bool int8, const void* vectors, const void* vkey, const void* vscale,
-                const void* queries, const void* qscale, void* part_d, void* part_r, int B,
-                int N_pad, int D, int n, int metric, int splits, void* stream) {
-    if (B > 0 && splits > 0) {
-        const dim3 grid((B + BM - 1) / BM, splits);
-        if (int8) {
-            bucket_bank_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-                (const uint8_t*)vectors, (const float*)vkey, (const float*)vscale,
-                (const uint8_t*)queries, (const float*)qscale, (float*)part_d, (int*)part_r,
-                B, N_pad, D, n, metric, splits);
-        } else {
-            bucket_bank_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-                (const uint8_t*)vectors, (const float*)vkey, nullptr, (const uint8_t*)queries,
-                nullptr, (float*)part_d, (int*)part_r, B, N_pad, D, n, metric, splits);
-        }
-    }
-    return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" int bucket_bank_bf16(const void* vectors, const void* vkey, const void* queries,
                                 void* part_d, void* part_r, int B, int N_pad, int D, int n,
                                 int metric, int splits, void* stream) {
-    return launch_bank(false, vectors, vkey, nullptr, queries, nullptr, part_d, part_r, B,
-                       N_pad, D, n, metric, splits, stream);
+    if (B > 0 && splits > 0)
+        return launch_bank_bf16(vectors, vkey, queries, part_d, part_r, B, N_pad, D, n, metric,
+                                splits, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int bucket_bank_int8(const void* v8, const void* vkey, const void* vscale,
                                 const void* q8, const void* qscale, void* part_d, void* part_r,
                                 int B, int N_pad, int D, int n, int metric, int splits,
                                 void* stream) {
-    return launch_bank(true, v8, vkey, vscale, q8, qscale, part_d, part_r, B, N_pad, D, n,
-                       metric, splits, stream);
+    if (B > 0 && splits > 0) {
+        const dim3 grid((B + BM - 1) / BM, splits);
+        bucket_bank_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)v8, (const float*)vkey, (const float*)vscale, (const uint8_t*)q8,
+            (const float*)qscale, (float*)part_d, (int*)part_r, B, N_pad, D, n, metric, splits);
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" int packed_bank_int8(const void* v8, const void* nvkey, const void* q8, void* part_d,

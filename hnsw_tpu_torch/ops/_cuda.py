@@ -3,8 +3,11 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into a shared library under
 ``hnsw_tpu_torch/_build/``, at first use. The sources and the shared headers
-(``csrc/*.cuh``) are hashed, so an edit rebuilds and an unchanged tree reuses
-the library. All sources are compiled
+(``csrc/*.cuh``: the ``mma.sync`` tile loop ``tile.cuh`` and the Hopper
+mainloop ``wgmma.cuh``) are hashed, so an edit rebuilds and an unchanged tree
+reuses the library. ``wgmma.cuh`` needs no extra flag: ``sm_90a`` enables
+``wgmma`` and ``setmaxnreg``, and the TMA tensor maps are encoded through
+``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``. All sources are compiled
 at once, one ``nvcc`` process each. The libraries are loaded with ``ctypes``;
 every pointer and the stream are passed as ``c_void_p``. Each C entry returns
 ``cudaGetLastError()`` after its launch, and ``check`` raises on a non-zero
@@ -19,6 +22,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -76,6 +80,28 @@ SIGNATURES = {
 # the last build's compiler output per source (ptxas register / spill
 # report), for the smoke script to print
 BUILD_LOG: dict = {}
+
+
+def kernel_resources(log: str) -> dict:
+    """{mangled kernel name: (registers, spill bytes)} from the ptxas report
+    (``-Xptxas -v``) in an nvcc log. Spill bytes are stores plus loads. For a
+    kernel that calls setmaxnreg the registers are ptxas's count under its
+    launch bounds, not what setmaxnreg gives a warpgroup."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name is not None:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), spill)
+            name = None
+    return out
 
 
 def _nvcc() -> str:

@@ -308,17 +308,27 @@ def int8_sweep_topk_plain(v8, vscale, v_sq, q8, qmeta, n, *, k: int,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _splits(qblocks: int, ntiles: int, device) -> int:
-    """Corpus splits per query block: the count that fills the card's SMs
-    in the most even number of waves (one block per SM at a time)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+# tiles a split may hold: the bf16 bank kernel keeps a kept row as its 16-bit
+# tile index within the split, 0xFFFF meaning none
+MAX_SPLIT_TILES = 0xFFFF
+
+
+def split_plan(qblocks: int, ntiles: int, sms: int) -> int:
+    """Corpus splits per query block: the count that fills `sms` SMs in the
+    most even number of waves (one block per SM at a time), raised where
+    needed so that no split holds more than MAX_SPLIT_TILES tiles."""
     best, best_eff = 1, 0.0
     for s in range(1, min(ntiles, 16) + 1):
         waves = qblocks * s / sms
         eff = waves / math.ceil(waves)
         if eff > best_eff + 1e-9:
             best, best_eff = s, eff
-    return best
+    return max(best, -(-ntiles // MAX_SPLIT_TILES))
+
+
+def _splits(qblocks: int, ntiles: int, device) -> int:
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_plan(qblocks, ntiles, sms)
 
 
 def _check_tensors(dev, tensors, f32):

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Time the flat-scan kernels of the hnsw_tpu_torch tree in the current
 directory, at chip_smoke.py's shapes: 31,173 x 768 embedding-like corpus
-(cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8). The two
-bucketed bank kernels (bucket_topk, int8_bucket_topk) keep their own tile
-loop; the three others (exact_topk_sweep, int8_sweep_topk, int8_packed_topk)
-run the shared one of csrc/tile.cuh. Prints the median of 30 CUDA-event
-timings of each.
+(cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8), and the two int8
+floors (matmul_only, matmul_min) at nt = 2048. bucket_topk and matmul_min
+run the Hopper mainloop of csrc/wgmma.cuh; int8_bucket_topk keeps its own
+inline mma.sync loop; exact_topk_sweep, int8_sweep_topk, int8_packed_topk
+and matmul_only run the shared one of csrc/tile.cuh. Prints the median of
+30 CUDA-event timings of each. Kernel names given as arguments are timed
+alone, in that order (the card's state after one kernel can move the
+next one's time).
 
 To compare two trees on one card, unpack the other tree (for example the
 parent commit: git archive HEAD hnsw_tpu_torch | tar -x -C <dir>) and run,
@@ -49,10 +52,15 @@ def main() -> int:
     kernels = _helper()
     data = generate_vectors(31173, 768, distribution="embedding",
                             num_clusters=64, seed=42)
-    calls = kernels.scan_calls(kernels.probe_operands(data))
+    x = kernels.probe_operands(data)
+    calls = kernels.scan_calls(x)
+    floors = kernels.floor_calls(x)
+    for label in ("matmul_only_b4096_nt2048", "matmul_min_b4096_nt2048"):
+        calls[label.split("_b4096")[0]] = floors[label]
+    names = sys.argv[1:] or list(calls)
     print(os.getcwd(), " ".join(
-        f"{name}_ms {kernels.median_ms(fn, reps=30)}"
-        for name, fn in calls.items()), flush=True)
+        f"{name}_ms {kernels.median_ms(calls[name], reps=30)}"
+        for name in names), flush=True)
     return 0
 
 

@@ -80,8 +80,10 @@ def test_hop_kernel_refuses_what_it_cannot_take(cuda_device):
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
 def test_bucket_banks_match_plain_versions(metric, cuda_device):
     g = torch.Generator(device="cpu").manual_seed(1)
+    # (70, 1024, 1536, 1000): rows of 3,072 bytes, whose query block the
+    # bf16 kernel streams through its ring instead of keeping it resident
     for b, n_pad, d, n in ((70, 1024, 256, 1000), (300, 4096, 768, 4000),
-                           (8, 128, 128, 5)):
+                           (8, 128, 128, 5), (70, 1024, 1536, 1000)):
         v = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g),
                                           dim=1)
         q = v[torch.randint(0, n, (b,), generator=g)]
@@ -248,10 +250,13 @@ def test_bf16_floors_match_plain_versions(b, n, d, cuda_device):
 
 
 @pytest.mark.parametrize("b,n,d,nt", [(4096, 32768, 768, 2048),
-                                      (37, 5000, 256, 2048)])
+                                      (37, 5000, 256, 2048),
+                                      (100, 3000, 3072, 1024)])
 def test_int8_floors_match_plain_versions(b, n, d, nt, cuda_device):
     """int32 dots are exact: bit for bit. The second shape has a B and an N
-    that are not tile multiples (the last whole nt tile is kept)."""
+    that are not tile multiples (the last whole nt tile is kept); the third
+    has rows of 3,072 bytes, whose query block matmul_min's wgmma kernel
+    streams through its ring instead of keeping it resident."""
     g = torch.Generator(device="cpu").manual_seed(6)
     q8 = torch.randint(-127, 128, (b, d), generator=g,
                        dtype=torch.int8).to(cuda_device)
@@ -263,6 +268,35 @@ def test_int8_floors_match_plain_versions(b, n, d, nt, cuda_device):
         got = fn(q8, v8, nt=nt)
         assert fn.launches == before + 1
         torch.testing.assert_close(got, plain(q8, v8, nt=nt), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+def test_bucket_bank_breaks_exact_ties_like_the_plain_version(metric,
+                                                              cuda_device):
+    """A corpus of five distinct vectors repeated in a fixed pattern: every
+    kept key ties with others, in one tile (across buckets), in two tiles of
+    one split and in two splits, so the tie rule alone picks every kept row.
+    Identical rows give bit-identical keys on both sides, so the rows must
+    equal the plain version's (nt=128) everywhere; n is not a multiple of
+    128."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    b, n_pad, d, n = 70, 4096, 256, 4000
+    base = torch.nn.functional.normalize(torch.randn(5, d, generator=g), dim=1)
+    pattern = (torch.arange(n_pad) * 7 + torch.arange(n_pad) // 300) % 5
+    v = base[pattern]
+    q = (base[torch.randint(0, 5, (b,), generator=g)]
+         + 0.02 * torch.randn(b, d, generator=g))
+    vsq = (v * v).sum(1)
+    vb, vk, qb = [t.to(cuda_device) for t in
+                  (v.to(torch.bfloat16), scan.bf16_vkey(vsq, metric),
+                   q.to(torch.bfloat16))]
+    assert scan._splits(-(-b // 64), n_pad // 128, cuda_device) > 1
+    kd, kr = scan.bucket_bank(vb, vk, qb, n, metric=metric)
+    pd, pr = scan.bucket_bank_plain(vb, vk, qb, n, metric=metric, nt=128)
+    live = pd < 1e29
+    assert bool(live.all())
+    assert bool(torch.equal(kr[live], pr[live]))
+    np.testing.assert_allclose(kd[live].cpu(), pd[live].cpu(), atol=KEY_TOL)
 
 
 def test_families_on_the_card_match_the_plain_path(cuda_device):
