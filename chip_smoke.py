@@ -19,10 +19,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      save / load in .npz and .idx, and a stateful HNSW index of 30,149 rows
      grown by one wave insert of 1,024;
   6. the probe path at full width (the twin of scripts/_probe_r4e.py, r4f,
-     r5a and r5c): the four matmul floors run at the probes' shapes, their
-     phase-3 times printed beside those of the scan kernels they bound
-     (matmul_only, on the mma.sync loop, against matmul_min, on the wgmma
-     mainloop), then partitioned HNSW (8
+     r5a and r5c): the four matmul floors, all on the wgmma mainloop, run at
+     the probes' shapes; their phase-3 times are printed beside those of
+     the scan kernels, each against the floor of its type and with the loop
+     it runs, and as microseconds per 128-byte chunk per SM for every
+     kernel on the wgmma mainloop; then partitioned HNSW (8
      partitions) and IVF-HNSW (32 clusters) built, searched at B=1024
      through the hop_score kernel at hop width 256, measured with the
      ported bench harness (recall@10 against the exact flat index, QPS,
@@ -75,8 +76,8 @@ KERNEL_ENTRIES = {
     "mm_only": ("probes.cu", "13colsum_kernelILb0E"),
     "mm_only_nt": ("probes.cu", "13colsum_kernelILb0E"),
     "mm_only_kmajor": ("probes.cu", "13colsum_kernelILb1E"),
-    "matmul_only": ("probes.cu", "16last_tile_kernel"),
-    "matmul_min": ("probes.cu", "20last_tile_min_kernel"),
+    "matmul_only": ("probes.cu", "16last_tile_kernelILb0E"),
+    "matmul_min": ("probes.cu", "16last_tile_kernelILb1E"),
 }
 
 
@@ -130,6 +131,13 @@ def live_rows(n: int, tile: int = 128) -> int:
     bucket) that hold a row below n. Rows past them key BIG and need no
     work, so the bounds count neither their bytes nor their products."""
     return -(-n // tile) * tile
+
+
+def chunk_us(ms: float, b: int, rows: int, row_bytes: int, sms: int) -> float:
+    """Microseconds per 128-byte chunk per SM of a wgmma.cuh kernel: its time
+    over the chunks each SM walks (64-query blocks x 128-row tiles of the
+    `rows` it walks x chunks per row, over the SMs)."""
+    return ms * 1e3 / (-(-b // 64) * (rows // 128) * (row_bytes // 128) / sms)
 
 
 def recall(rows, exact_rows) -> float:
@@ -801,8 +809,9 @@ def probe_path(torch, data, records, floor_ms):
     probes' shapes, then partitioned HNSW (r4e, r5c) and IVF-HNSW (r5c)
     through the ported harness, and a save / load of each. The floors and
     scan kernels were timed in phase 3; their times are printed here side
-    by side, so that a scan kernel's time less its floor is its
-    epilogue."""
+    by side, so that a scan kernel's time less its floor is what its
+    epilogue, and for a kernel on an mma.sync loop that loop, cost beside
+    the wgmma mainloop of the floors."""
     import tempfile
 
     import hnsw_tpu_torch as ht
@@ -823,37 +832,44 @@ def probe_path(torch, data, records, floor_ms):
 
     for fn in kernels:
         fn.launches = 0
-    # (a) the floors at the probes' shapes, beside the kernels they bound
+    # (a) the floors at the probes' shapes, beside the kernels they bound,
+    # with the time of one 128-byte chunk on an SM of each wgmma.cuh kernel
+    # (a split column sum's and bucket_topk's include their merge)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, call in floor_calls(x).items():
         out = call()
         torch.cuda.synchronize()
-        check(tuple(out.shape) == (call.args[0].shape[0], 128) and
+        q, v = call.args
+        check(tuple(out.shape) == (q.shape[0], 128) and
               bool(torch.isfinite(out.float()).all()),
               f"{label}: output of shape {tuple(out.shape)} or not finite")
-        say("probe", stage="floor", what=label, ms=floor_ms[label])
-    # The floors of the mma.sync loop (csrc/tile.cuh) bound the scan kernels
-    # that run it; matmul_min runs the Hopper mainloop (csrc/wgmma.cuh), and
-    # beside matmul_only (the same s8 products on the old loop) it measures
-    # the new loop against the old. bucket_topk runs the new loop, which has
-    # no bf16 floor, so mm_only no longer bounds it.
-    bf16_floor = floor_ms["mm_only_b4096_n31744"]
-    old_int8 = floor_ms["matmul_only_b4096_nt2048"]
-    new_int8 = floor_ms["matmul_min_b4096_nt2048"]
-    say("probe", stage="loop", old="matmul_only (tile.cuh, mma.sync)",
-        old_ms=old_int8, new="matmul_min (wgmma.cuh, TMA + wgmma)",
-        new_ms=new_int8, old_over_new=old_int8 / new_int8)
-    for name, floor, floor_name in (
-            ("exact_topk_sweep", bf16_floor, "mm_only"),
-            ("int8_bucket_topk", old_int8, "matmul_only"),
-            ("int8_sweep_topk", old_int8, "matmul_only"),
-            ("int8_packed_topk", old_int8, "matmul_only")):
+        rows = v.shape[1 if "kmajor" in label else 0]
+        rows -= rows % call.kwargs.get("nt", 128)
+        row_bytes = q.shape[1] * q.element_size()
+        say("probe", stage="floor", what=label, loop="wgmma.cuh",
+            ms=floor_ms[label], us_per_chunk_per_sm=chunk_us(
+                floor_ms[label], q.shape[0], rows, row_bytes, sms))
+    say("probe", stage="chunk", what="bucket_topk B=4096", loop="wgmma.cuh",
+        ms=records["bucket_topk"]["ms"], us_per_chunk_per_sm=chunk_us(
+            records["bucket_topk"]["ms"], 4096, 31744, DIM * 2, sms))
+    # Each scan kernel against the floor of its type, which runs the wgmma
+    # mainloop (csrc/wgmma.cuh) with no epilogue at the same B and corpus:
+    # for bucket_topk, which runs that loop too, the difference is its
+    # bank; for a kernel on an mma.sync loop, its loop and its epilogue
+    # beside the new loop.
+    floors = {"bf16": ("mm_only B=4096 N=31744", "mm_only_b4096_n31744"),
+              "int8": ("matmul_only nt=2048", "matmul_only_b4096_nt2048")}
+    for name, kind, loop in (
+            ("bucket_topk", "bf16", "wgmma.cuh"),
+            ("exact_topk_sweep", "bf16", "tile.cuh"),
+            ("int8_bucket_topk", "int8", "scan.cu (inline mma.sync)"),
+            ("int8_sweep_topk", "int8", "tile.cuh"),
+            ("int8_packed_topk", "int8", "tile.cuh")):
         ms = records[name]["ms"]
-        say("probe", stage="epilogue", kernel=f"{name} B=4096", loop="tile.cuh",
-            kernel_ms=ms, floor=floor_name, floor_ms=floor,
-            epilogue_ms=ms - floor)
-    say("probe", stage="epilogue", kernel="bucket_topk B=4096", loop="wgmma.cuh",
-        kernel_ms=records["bucket_topk"]["ms"],
-        floor="none (mm_only runs tile.cuh)")
+        floor_name, label = floors[kind]
+        say("probe", stage="floor_gap", kernel=f"{name} B=4096", loop=loop,
+            kernel_ms=ms, floor=floor_name, floor_ms=floor_ms[label],
+            kernel_minus_floor_ms=ms - floor_ms[label])
     del x
 
     # (b) the families, measured with the ported harness

@@ -1,8 +1,9 @@
-// Matmul floors: a scan's product loop with the probes' trivial epilogues.
-// colsum and the store floor run the mma.sync loop of tile.cuh; the min floor
-// runs the Hopper mainloop of wgmma.cuh (TMA ring, wgmma, resident query
-// block), so matmul_only against matmul_min is the old loop against the new
-// one in one run.
+// Matmul floors: a scan's product loop with the probes' trivial epilogues, on
+// the Hopper mainloop of wgmma.cuh (TMA ring, wgmma, resident query block),
+// the loop of the bf16 bucket bank. Each is "the new loop without selection",
+// so a scan kernel's time minus its floor's is what its epilogue costs, or,
+// for a kernel still on the mma.sync loop of tile.cuh, what that loop and its
+// epilogue cost beside the new loop.
 //
 // Replaces the TPU probe kernels
 //   scripts/_probe_r4e.py::mm_only (mm_kernel)              -> colsum, NT
@@ -22,39 +23,40 @@
 //     min:   out[b, j] = min over s < g of q_b . v[N_used - nt + 128 s + j]
 //
 // Bound on the H100: tensor-core operations, 2*B*N*D of them; the epilogues
-// are one add (colsum) or one compare (min) per product. For last_tile that is
-// the bound of the tile loop over every row, which the floor runs by design;
-// the output alone depends on the last nt rows (min) or 128 rows (store),
-// whose products would take 1/15 or 1/244 of that at N = 31,232. These are
-// yardsticks: each is "the port's own tile loop without selection", so a scan
-// kernel's time minus its floor's is what its epilogue costs. Design: a block
-// owns 64 queries and walks the 128-row tiles of one corpus split (the
-// TPU's sequential corpus-tile axis); the corpus is split across blocks where
-// the query tiles alone leave SMs idle. colsum keeps 32 (query, column) sums
-// per thread and writes one partial per split, summed in split order by
-// colsum_merge. last_tile aligns its splits to nt-row tiles, so the last one
-// lies in the last split, whose block alone writes. Every product goes
-// through inline asm volatile (mma.sync in tile.cuh, wgmma in wgmma.cuh), so
-// nvcc cannot drop the products of the tiles whose results are not kept
-// (Mosaic did, on the TPU, for matmul_only).
+// are nothing (colsum: the sum is the wgmma accumulation) or one compare per
+// product of the kept tile (store) or of the last nt rows (min). For
+// last_tile that is the bound of the tile loop over every row, which the
+// floor runs by design; the output alone depends on the last nt rows (min)
+// or 128 rows (store), whose products would take 1/15 or 1/244 of that at
+// N = 31,232.
 //
-// matmul_min on the H100 (B = 4096, nt = 2048, 32,768 x 768 s8): bound 0.099
-// ms of s8 tensor-core operations over the live rows; the tile.cuh loop took
-// 0.813 ms, torch._int_mm + the min 0.400. The wgmma kernel keeps each
-// thread's 32 running minima in registers and writes them once; its time is
-// the mainloop's (the min is one instruction per product on 1/16 of the
-// tiles): about 0.25 ms, 41% of the s8 peak (PERF.md).
+// Design. A block owns 64 queries and walks the 128-row tiles of one corpus
+// split (the TPU's sequential corpus-tile axis); the corpus is split across
+// blocks where the query tiles alone leave SMs idle.
+// - colsum: each consumer carries one accumulator set across the split's
+//   tiles (wg::consume_sum: scale_d = 0 on the split's first chunk only, no
+//   per-tile drain, no epilogue), so the column sum costs no instruction
+//   beyond the products; the split's partial is written once and colsum_merge
+//   sums the partials in split order. The K-major variant reads vT [D, N] as
+//   it lies: a tensor map over vT, boxes of 64 corpus rows x 64 K rows, and
+//   wgmma with an MN-major B (imm-trans-b = 1), with no copy to [N, D].
+// - last_tile: one template, the epilogue (store or min) its parameter. Its
+//   splits are aligned to nt-row tiles, so the last one lies in the last
+//   split, whose block alone writes. Each thread keeps 32 int32 values in
+//   registers beside its accumulators, in their layout: the running minima
+//   over the last nt tile's 128-row tiles (min), or tile t_last's dots
+//   (store), and writes them once.
+// Every product goes through inline asm volatile wgmma, so nvcc cannot drop
+// the products of the tiles whose results are not kept (Mosaic did, on the
+// TPU, for matmul_only).
 
 #include <limits.h>
 
-#include "tile.cuh"
 #include "wgmma.cuh"
-
-using namespace tile;
 
 namespace {
 
-constexpr int kPairs = BM * BN / kThreads;   // (query, column) pairs per thread
+constexpr int BN = wg::BN;
 constexpr int kMaxSplits = 16;
 
 __device__ __forceinline__ void split_range(int units, int split, int splits, int& b, int& e) {
@@ -62,33 +64,37 @@ __device__ __forceinline__ void split_range(int units, int split, int splits, in
     e = (int)((long long)(split + 1) * units / splits);
 }
 
+// mm_only (VT = false: v [N, D]) and mm_only_kmajor (VT: vT [D, N]), bf16.
 template <bool VT>
-__global__ void __launch_bounds__(kThreads)
-colsum_kernel(const uint8_t* __restrict__ v, const uint8_t* __restrict__ q,
-              float* __restrict__ part, int B, int N, int D, int splits) {
-    __shared__ __align__(16) uint8_t smem[kSmem];
-    const int tid = threadIdx.x;
-    const int q0 = blockIdx.x * BM, split = blockIdx.y;
+__global__ void __launch_bounds__(wg::kThreads, 1)
+colsum_kernel(__grid_constant__ const CUtensorMap qmap, __grid_constant__ const CUtensorMap vmap,
+              float* __restrict__ part, int B, int N, int nk, int stages, int q_resident,
+              int splits) {
+    extern __shared__ uint8_t smem_raw[];
+    const wg::Ring ring = wg::setup(smem_raw, nk, stages, q_resident);
+    const int q0 = blockIdx.x * wg::BM, split = blockIdx.y;
     int t_begin, t_end;
     split_range(N / BN, split, splits, t_begin, t_end);
 
-    float acc[kPairs];
+    if (threadIdx.x < 128) {
+        wg::producer_regs();
+        if (threadIdx.x == 0)
+            wg::produce<VT>(ring, &qmap, &vmap, q0, t_begin, t_end, wg::KB / 2);
+    } else {
+        wg::consumer_regs();
+        float acc[wg::kAcc];
+        wg::consume_sum<VT>(ring, t_begin, t_end, acc);
+        const wg::Frag f = wg::frag();
 #pragma unroll
-    for (int i = 0; i < kPairs; ++i) acc[i] = 0.f;
-
-    product_tiles<false, VT>(v, q, B, D, q0, t_begin, t_end, smem,
-                             [&](int, const float* Cs) {
+        for (int h = 0; h < 2; ++h) {
+            const int row = q0 + f.row0 + 8 * h;
+            if (row >= B) continue;
+            float* dst = part + ((long long)split * B + row) * BN + f.col0;
 #pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-            const int e = tid + i * kThreads;
-            acc[i] += Cs[(e >> 7) * LDC + (e & (BN - 1))];
+            for (int j = 0; j < wg::WN / 8; ++j)
+                *reinterpret_cast<float2*>(dst + 8 * j) =
+                    make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         }
-    }, N);
-
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-        const int e = tid + i * kThreads, row = q0 + (e >> 7);
-        if (row < B) part[((long long)split * B + row) * BN + (e & (BN - 1))] = acc[i];
     }
 }
 
@@ -103,44 +109,17 @@ __global__ void colsum_merge_kernel(const float* __restrict__ part, float* __res
     out[i] = s;
 }
 
-// matmul_only: the store floor, on the tile loop of tile.cuh.
-__global__ void __launch_bounds__(kThreads)
-last_tile_kernel(const uint8_t* __restrict__ v8, const uint8_t* __restrict__ q8,
-                 int* __restrict__ out, int B, int N_used, int D, int nt, int splits) {
-    __shared__ __align__(16) uint8_t smem[kSmem];
-    const int tid = threadIdx.x;
-    const int q0 = blockIdx.x * BM, split = blockIdx.y;
-    const int group = nt / BN;                       // 128-row tiles per nt-row tile
-    const int t_last = N_used / BN - group;          // first 128-row tile of the last nt tile
-    int u_begin, u_end;
-    split_range(N_used / nt, split, splits, u_begin, u_end);
-
-    product_tiles<true>(v8, q8, B, D, q0, u_begin * group, u_end * group, smem,
-                        [&](int tile, const float* Cs) {
-        if (tile != t_last) return;                  // block-uniform
-#pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-            const int e = tid + i * kThreads, row = q0 + (e >> 7);
-            // s32 dots, exact in f32 below 2^24
-            if (row < B) out[(long long)row * BN + (e & (BN - 1))] =
-                (int)Cs[(e >> 7) * LDC + (e & (BN - 1))];
-        }
-    });
-}
-
-// matmul_min: the min floor, on the Hopper mainloop of wgmma.cuh. The running
-// min of each (query, column) pair is an exact int32 in the registers beside
-// the s32 accumulators (32 per consumer thread); the products of every tile
-// are formed by inline asm volatile wgmma, which nvcc cannot drop.
+// matmul_only (MIN = false) and matmul_min (MIN), s8.
+template <bool MIN>
 __global__ void __launch_bounds__(wg::kThreads, 1)
-last_tile_min_kernel(__grid_constant__ const CUtensorMap qmap,
-                     __grid_constant__ const CUtensorMap vmap, int* __restrict__ out, int B,
-                     int N_used, int nt, int nk, int stages, int q_resident, int splits) {
+last_tile_kernel(__grid_constant__ const CUtensorMap qmap,
+                 __grid_constant__ const CUtensorMap vmap, int* __restrict__ out, int B,
+                 int N_used, int nt, int nk, int stages, int q_resident, int splits) {
     extern __shared__ uint8_t smem_raw[];
     const wg::Ring ring = wg::setup(smem_raw, nk, stages, q_resident);
     const int q0 = blockIdx.x * wg::BM, split = blockIdx.y;
-    const int group = nt / wg::BN;
-    const int t_last = N_used / wg::BN - group;
+    const int group = nt / BN;                       // 128-row tiles per nt-row tile
+    const int t_last = N_used / BN - group;          // first 128-row tile of the last nt tile
     int u_begin, u_end;
     split_range(N_used / nt, split, splits, u_begin, u_end);
 
@@ -150,17 +129,24 @@ last_tile_min_kernel(__grid_constant__ const CUtensorMap qmap,
             wg::produce(ring, &qmap, &vmap, q0, u_begin * group, u_end * group, wg::KB);
     } else {
         wg::consumer_regs();
-        int mn[wg::kAcc];
+        const wg::Frag f = wg::frag();
+        // The minimum over the kept tiles, in registers: the last nt tile's
+        // (min), or the one tile t_last (store: the minimum over one tile is
+        // that tile). Not a copy: ptxas turns a copy into selects run on
+        // every chunk, each behind a wait for the accumulators; the minimum
+        // stays behind the branch. Nor a store straight from the
+        // accumulators: a read of them under the per-thread row < B test
+        // makes ptxas serialise every wgmma of the kernel (info C7518).
+        int kept[wg::kAcc];
 #pragma unroll
-        for (int i = 0; i < wg::kAcc; ++i) mn[i] = INT_MAX;
+        for (int i = 0; i < wg::kAcc; ++i) kept[i] = INT_MAX;
         wg::consume<int>(ring, u_begin * group, u_end * group, [](int) {},
                          [&](auto& acc, int tile) {
-            if (tile < t_last) return;               // block-uniform
+            if (MIN ? tile < t_last : tile != t_last) return;   // block-uniform
 #pragma unroll
-            for (int i = 0; i < wg::kAcc; ++i) mn[i] = min(mn[i], acc[i]);
+            for (int i = 0; i < wg::kAcc; ++i) kept[i] = min(kept[i], acc[i]);
         });
         if (split != splits - 1) return;
-        const wg::Frag f = wg::frag();
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
             const int row = q0 + f.row0 + 8 * h;
@@ -168,7 +154,7 @@ last_tile_min_kernel(__grid_constant__ const CUtensorMap qmap,
 #pragma unroll
             for (int j = 0; j < wg::WN / 8; ++j)
                 *reinterpret_cast<int2*>(out + (long long)row * BN + f.col0 + 8 * j) =
-                    make_int2(mn[4 * j + 2 * h], mn[4 * j + 2 * h + 1]);
+                    make_int2(kept[4 * j + 2 * h], kept[4 * j + 2 * h + 1]);
         }
     }
 }
@@ -179,23 +165,30 @@ last_tile_min_kernel(__grid_constant__ const CUtensorMap qmap,
 // part: [splits, B, 128] f32 (out itself when splits == 1); out: [B, 128].
 extern "C" int colsum_bf16(const void* v, const void* q, void* part, void* out, int B, int N,
                            int D, int kmajor, int splits, void* stream) {
-    if (splits < 1 || splits > kMaxSplits || N % BN || (2 * D) % KB) return (int)cudaErrorInvalidValue;
-    if (B > 0) {
-        const dim3 grid((B + BM - 1) / BM, splits);
-        cudaStream_t s = (cudaStream_t)stream;
-        if (kmajor)
-            colsum_kernel<true><<<grid, kThreads, 0, s>>>((const uint8_t*)v, (const uint8_t*)q,
-                                                          (float*)part, B, N, D, splits);
-        else
-            colsum_kernel<false><<<grid, kThreads, 0, s>>>((const uint8_t*)v, (const uint8_t*)q,
-                                                           (float*)part, B, N, D, splits);
-        const cudaError_t err = cudaGetLastError();
-        if (err != cudaSuccess || splits == 1) return (int)err;
-        const long long total = (long long)B * BN;
-        const int threads = 256;
-        colsum_merge_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
-            (const float*)part, (float*)out, B, splits);
-    }
+    if (splits < 1 || splits > kMaxSplits || N % BN || (2 * D) % wg::KB)
+        return (int)cudaErrorInvalidValue;
+    if (B <= 0) return (int)cudaGetLastError();
+    const int row_bytes = 2 * D;
+    const wg::Plan p = wg::plan(row_bytes);
+    CUtensorMap qmap, vmap;
+    int err = wg::encode_rows(&qmap, q, row_bytes, B, wg::BM, false);
+    if (err == 0)
+        err = kmajor ? wg::encode_rows(&vmap, v, 2 * N, D, wg::WN, false)
+                     : wg::encode_rows(&vmap, v, row_bytes, N, BN, false);
+    if (err != 0) return err;
+    auto kernel = kmajor ? colsum_kernel<true> : colsum_kernel<false>;
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != 0) return err;
+    cudaStream_t s = (cudaStream_t)stream;
+    const dim3 grid((B + wg::BM - 1) / wg::BM, splits);
+    kernel<<<grid, wg::kThreads, p.smem, s>>>(qmap, vmap, (float*)part, B, N, row_bytes / wg::KB,
+                                              p.stages, p.q_resident, splits);
+    err = (int)cudaGetLastError();
+    if (err != 0 || splits == 1) return err;
+    const long long total = (long long)B * BN;
+    const int threads = 256;
+    colsum_merge_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
+        (const float*)part, (float*)out, B, splits);
     return (int)cudaGetLastError();
 }
 
@@ -203,26 +196,20 @@ extern "C" int colsum_bf16(const void* v, const void* q, void* part, void* out, 
 // multiple of nt, nt of 128.
 extern "C" int last_tile_int8(const void* v8, const void* q8, void* out, int B, int N_used, int D,
                               int nt, int take_min, int splits, void* stream) {
-    if (splits < 1 || nt < BN || nt % BN || N_used < nt || N_used % nt || D % KB ||
+    if (splits < 1 || nt < BN || nt % BN || N_used < nt || N_used % nt || D % wg::KB ||
         splits > N_used / nt)
         return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
-    const dim3 grid((B + BM - 1) / BM, splits);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (!take_min) {
-        last_tile_kernel<<<grid, kThreads, 0, s>>>((const uint8_t*)v8, (const uint8_t*)q8,
-                                                   (int*)out, B, N_used, D, nt, splits);
-        return (int)cudaGetLastError();
-    }
     const wg::Plan p = wg::plan(D);
     CUtensorMap qmap, vmap;
     int err = wg::encode_rows(&qmap, q8, D, B, wg::BM, true);
-    if (err == 0) err = wg::encode_rows(&vmap, v8, D, N_used, wg::BN, true);
+    if (err == 0) err = wg::encode_rows(&vmap, v8, D, N_used, BN, true);
     if (err != 0) return err;
-    err = (int)cudaFuncSetAttribute(last_tile_min_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    auto kernel = take_min ? last_tile_kernel<true> : last_tile_kernel<false>;
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != 0) return err;
-    last_tile_min_kernel<<<grid, wg::kThreads, p.smem, s>>>(
+    const dim3 grid((B + wg::BM - 1) / wg::BM, splits);
+    kernel<<<grid, wg::kThreads, p.smem, (cudaStream_t)stream>>>(
         qmap, vmap, (int*)out, B, N_used, nt, D / wg::KB, p.stages, p.q_resident, splits);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // The 64 x 128 product-tile loop of the flat-scan kernels: the sweep kernels
-// (sweep.cu), the packed kernel (scan.cu) and the matmul floors (probes.cu)
-// call it; the bucketed kernels of scan.cu keep the same loop inline (see
-// there).
+// (sweep.cu) and the packed kernel (scan.cu) call it; the int8 bucketed
+// kernel of scan.cu keeps the same loop inline (see there). The bf16 bucket
+// bank and the matmul floors run the Hopper mainloop of wgmma.cuh instead.
 //
 // A block of 256 threads owns 64 queries and walks a range of 128-row corpus
 // tiles. Eight warps compute each 64 x 128 product tile with mma.sync
@@ -13,11 +13,6 @@
 // is synchronised before and after that write, and again before the next
 // tile's staging overwrites it, so an epilogue may read Cs freely but must
 // not write it.
-//
-// VT = true (bf16 only) reads the corpus K-major, as vT [D, ldv] (ldv corpus
-// rows per K row): each staged chunk is 64 K rows of 128 corpus rows, copied
-// as it lies ([64][LDT] bytes), and the B fragments are read with
-// ldmatrix.trans. VT = false is the loop the scan kernels use, unchanged.
 
 #pragma once
 
@@ -31,7 +26,6 @@ constexpr int BN = 128;         // corpus rows per tile
 constexpr int KB = 128;         // bytes of K per staged chunk
 constexpr int LDS = KB + 16;    // padded smem row (36 words: conflict-free fragments)
 constexpr int LDC = BN + 4;     // padded f32 product-tile row
-constexpr int LDT = 2 * BN + 16;  // padded K-major smem row (68 words: conflict-free ldmatrix)
 constexpr int kThreads = 256;
 constexpr float BIG = 1e30f;
 constexpr int kSmem = (BM * LDC * 4 > (BM + BN) * LDS) ? BM * LDC * 4 : (BM + BN) * LDS;
@@ -66,18 +60,14 @@ __device__ __forceinline__ void mma<true>(float (&d)[4], const uint32_t (&a)[4],
 
 // Products of queries [q0, q0 + BM) with the corpus tiles [t_begin, t_end).
 // Rows are row_bytes = D (s8) or 2 * D (bf16) bytes, a multiple of KB; query
-// rows >= B are read as zeros. smem holds kSmem bytes, 16-byte aligned. With
-// VT the corpus is vT [D, ldv] bf16 (ldv a multiple of 8).
-template <bool INT8, bool VT = false, typename Epilogue>
+// rows >= B are read as zeros. smem holds kSmem bytes, 16-byte aligned.
+template <bool INT8, typename Epilogue>
 __device__ __forceinline__ void product_tiles(const uint8_t* __restrict__ vectors,
                                               const uint8_t* __restrict__ queries, int B,
                                               int D, int q0, int t_begin, int t_end,
-                                              uint8_t* smem, Epilogue&& epilogue,
-                                              int ldv = 0) {
-    static_assert(!(VT && INT8), "the K-major corpus is bf16");
-    static_assert(!VT || BM * LDS + (KB / 2) * LDT <= kSmem, "K-major chunk fits");
+                                              uint8_t* smem, Epilogue&& epilogue) {
     uint8_t* Qs = smem;                 // [BM][LDS] bytes of the query chunk
-    uint8_t* Vs = smem + BM * LDS;      // [BN][LDS] (VT: [KB/2][LDT]) bytes of the corpus chunk
+    uint8_t* Vs = smem + BM * LDS;      // [BN][LDS] bytes of the corpus chunk
     float* Cs = reinterpret_cast<float*>(smem);   // [BM][LDC], aliases Qs/Vs
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -102,17 +92,9 @@ __device__ __forceinline__ void product_tiles(const uint8_t* __restrict__ vector
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            const int idx = tid + i * kThreads;
-            if constexpr (VT) {
-                // K row kc * 64 + (idx >> 4), 16 bytes of its 128 corpus rows
-                const int kr = idx >> 4, col = (idx & 15) * 16;
-                vreg[i] = __ldg(reinterpret_cast<const uint4*>(
-                    vectors + ((long long)(kc * (KB / 2) + kr) * ldv + tile * BN) * 2 + col));
-            } else {
-                const int r = idx >> 3, col = (idx & 7) * 16;
-                vreg[i] = __ldg(reinterpret_cast<const uint4*>(
-                    vectors + (long long)(tile * BN + r) * row_bytes + kc * KB + col));
-            }
+            const int idx = tid + i * kThreads, r = idx >> 3, col = (idx & 7) * 16;
+            vreg[i] = __ldg(reinterpret_cast<const uint4*>(
+                vectors + (long long)(tile * BN + r) * row_bytes + kc * KB + col));
         }
     };
 
@@ -128,10 +110,7 @@ __device__ __forceinline__ void product_tiles(const uint8_t* __restrict__ vector
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int idx = tid + i * kThreads;
-            if constexpr (VT)
-                *reinterpret_cast<uint4*>(Vs + (idx >> 4) * LDT + (idx & 15) * 16) = vreg[i];
-            else
-                *reinterpret_cast<uint4*>(Vs + (idx >> 3) * LDS + (idx & 7) * 16) = vreg[i];
+            *reinterpret_cast<uint4*>(Vs + (idx >> 3) * LDS + (idx & 7) * 16) = vreg[i];
         }
         __syncthreads();
         if (it + 1 < total) prefetch(it + 1);
@@ -155,29 +134,11 @@ __device__ __forceinline__ void product_tiles(const uint8_t* __restrict__ vector
                 a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
                 a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
             }
-            if constexpr (VT) {
-                // four 8x8 K x N matrices per ldmatrix.x4.trans: (K 0-7, ni),
-                // (K 8-15, ni), (K 0-7, ni + 1), (K 8-15, ni + 1); each lane
-                // gets K rows 2*t4, 2*t4 + 1 of column g, the col-major B
-                // fragment of m16n8k16
 #pragma unroll
-                for (int ni = 0; ni < 4; ni += 2) {
-                    const int kr = ks / 2 + ((lane >> 3) & 1) * 8 + (lane & 7);
-                    const int nc = warp_n * 32 + ni * 8 + (lane >> 4) * 8;
-                    const uint32_t addr = static_cast<uint32_t>(
-                        __cvta_generic_to_shared(Vs + kr * LDT + nc * 2));
-                    asm volatile(
-                        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                        : "=r"(b[ni][0]), "=r"(b[ni][1]), "=r"(b[ni + 1][0]), "=r"(b[ni + 1][1])
-                        : "r"(addr));
-                }
-            } else {
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) {
-                    const uint8_t* p = Vs + (warp_n * 32 + ni * 8 + g) * LDS + ks + t4 * 4;
-                    b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-                    b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-                }
+            for (int ni = 0; ni < 4; ++ni) {
+                const uint8_t* p = Vs + (warp_n * 32 + ni * 8 + g) * LDS + ks + t4 * 4;
+                b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
+                b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
             }
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi)

@@ -1,15 +1,18 @@
-// The Hopper mainloop of the redesigned scan kernels: TMA loads through an
-// mbarrier ring, wgmma on warpgroups, the query block resident in shared
-// memory, and an epilogue that works on the accumulator registers in place.
+// The Hopper mainloop of the redesigned scan kernels and the matmul floors:
+// TMA loads through an mbarrier ring, wgmma on warpgroups, the query block
+// resident in shared memory, and an epilogue that works on the accumulator
+// registers in place.
 //
-// Used by csrc/probes.cu (last_tile_min_kernel, the matmul_min floor) and
-// csrc/scan.cu (bucket_bank_wgmma_kernel, the bf16 bucket bank). It replaces,
-// for those two, the mma.sync loop of csrc/tile.cuh, which the other flat-scan
-// kernels keep: 8 warps of mma.sync fed through registers, one 128-byte K chunk
-// staged between two __syncthreads, the query block staged again for every
-// corpus tile, and each finished 64 x 128 product tile written to shared
-// memory as f32 for the epilogue. That loop ran at 8-9x its tensor-core bound
-// on the H100, 1.6-2.0x slower than cuBLAS.
+// Used by csrc/scan.cu (bucket_bank_wgmma_kernel, the bf16 bucket bank) and
+// by every matmul floor of csrc/probes.cu (last_tile_kernel: matmul_only and
+// matmul_min; colsum_kernel: mm_only, mm_only_nt and, with an MN-major corpus
+// operand, mm_only_kmajor). It replaces, for those, the mma.sync loop of
+// csrc/tile.cuh, which the sweep and packed kernels keep (and the int8 bucket
+// bank inline): 8 warps of mma.sync fed through registers, one 128-byte K
+// chunk staged between two __syncthreads, the query block staged again for
+// every corpus tile, and each finished 64 x 128 product tile written to
+// shared memory as f32 for the epilogue. That loop ran at 8-9x its
+// tensor-core bound on the H100, 1.6-2.0x slower than cuBLAS.
 //
 // Bound on the H100: the tensor cores, 2*B*N*D operations (989e12/s bf16,
 // 1979e12/s s8). What holds this design below that (PERF.md): a block tile
@@ -32,7 +35,8 @@
 // - warpgroups 1 and 2 are the consumers. Consumer w computes the products of
 //   the 64 queries with corpus columns [64w, 64w + 64) of each tile: four
 //   wgmma m64n64 (k16 bf16 -> f32, or k32 s8 -> s32) per 128-byte chunk, A and
-//   B read from shared memory through K-major 128-byte-swizzle descriptors.
+//   B read from shared memory through 128-byte-swizzle descriptors (K-major;
+//   B MN-major with VT, below).
 //   Each consumer keeps two accumulator sets: the epilogue of tile t runs
 //   after tile t+1's first three chunks are issued, on the registers of tile
 //   t where they lie. In the wgmma accumulator layout thread (warp v, lane l)
@@ -41,7 +45,13 @@
 //   beside the accumulators. No block-wide barrier after the set-up. ptxas
 //   still waits for the in-flight group before the epilogue's first read
 //   (info C7517), so the other consumer, not the same one, fills the tensor
-//   cores while an epilogue runs.
+//   cores while an epilogue runs. consume_sum is the variant without an
+//   epilogue: one accumulator set carried across all the tiles of the split
+//   (a column sum), with no per-tile drain.
+// - VT (bf16 only): the corpus is read as vT [D, N], N contiguous. A chunk is
+//   64 K rows of the tile's 128 corpus rows, loaded as one box of 64 x 64 per
+//   consumer half (8 KB each, so a stage is still 16 KB), and the consumers'
+//   wgmma read B MN-major (imm-trans-b = 1; see desc_sw128).
 // Shared memory: the query block (row_bytes * 64: 96 KB bf16 or 48 KB s8 at
 // D = 768) plus stages * 16 KB of ring, at most 8 stages and at least 3, plus
 // barriers, within the 227 KB a block may take (D = 768: 8 stages, 225 KB
@@ -102,7 +112,9 @@ inline Plan plan(int row_bytes) {
 
 // A map of `rows` rows of row_bytes bytes (s8 or bf16 elements), read in
 // boxes of box_rows rows x 128 bytes with the 128-byte swizzle; rows past the
-// end read as zeros. Returns a cudaError_t code.
+// end read as zeros. A row is a query or corpus row, or for vT [D, N] one K
+// row of N corpus elements (box_rows = 64 K rows, the box 64 corpus rows
+// wide). Returns a cudaError_t code.
 inline int encode_rows(CUtensorMap* map, const void* base, int row_bytes, long long rows,
                        int box_rows, bool int8) {
     using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -181,9 +193,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
         : "memory");
 }
 
-// K-major operand, 128-byte swizzle: rows of 128 bytes, 8-row groups 1,024
-// bytes apart (SBO), LBO unused (1); the base is 1,024-byte aligned. A 32-byte
-// k step adds 2 to the address field.
+// An operand tile as TMA writes it with the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1,024 bytes apart (SBO), LBO unused (1); the base is
+// 1,024-byte aligned.
+// - K-major (queries, and the corpus as [N, D]): a row is one M or N index,
+//   its 128 bytes run along K. A 32-byte k step adds 2 to the address field.
+// - MN-major (the corpus as vT [D, N], read with imm-trans-b = 1): a row is
+//   one K index holding 64 N elements. The descriptor fields are the same
+//   (cute's make_gmma_desc<Major::MN>: SBO is the stride between 8-row K
+//   groups, LBO the stride between 64-element N blocks, of which an m64n64
+//   B has one), but a k16 step spans 16 rows: 2,048 bytes, 128 in the
+//   address field.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
     return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
            ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
@@ -225,18 +245,22 @@ __device__ __forceinline__ void fence_acc(int (&d)[kAcc]) {
 #define WG_F(x) "+f"(x)
 #define WG_R(x) "+r"(x)
 
-// d (+)= A[64 x k16] B[k16 x 64], bf16 -> f32; scale_d = 0 overwrites d
+// d (+)= A[64 x k16] B[k16 x 64], bf16 -> f32; scale_d = 0 overwrites d.
+// TRANS_B reads B MN-major (imm-trans-b = 1).
+template <bool TRANS_B = false>
 __device__ __forceinline__ void mma(float (&d)[kAcc], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC_LIST
-        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
         : WG_ACC_OPERANDS(WG_F)
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"((int)TRANS_B));
 }
 
 // d (+)= A[64 x k32] B[k32 x 64], s8 -> exact s32
+template <bool TRANS_B = false>
 __device__ __forceinline__ void mma(int (&d)[kAcc], uint64_t a, uint64_t b, int scale_d) {
+    static_assert(!TRANS_B, "wgmma transposes 16-bit operands only");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WG_ACC_LIST
@@ -293,7 +317,9 @@ __device__ __forceinline__ void consumer_regs() {
 }
 
 // One thread of the producer warpgroup: the query block, then every chunk of
-// the tiles [t_begin, t_end). chunk_elems = 128 bytes in elements.
+// the tiles [t_begin, t_end). chunk_elems = 128 bytes in elements (with VT
+// also the K rows of a chunk).
+template <bool VT = false>
 __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* qmap,
                                         const CUtensorMap* vmap, int q0, int t_begin, int t_end,
                                         int chunk_elems) {
@@ -310,7 +336,14 @@ __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* qmap,
             mbar_wait(r.empty + 8 * stage, phase ^ 1);
             const uint32_t full = r.full + 8 * stage;
             mbar_expect_tx(full, kVChunk + (r.q_resident ? 0 : kQChunk));
-            tma_load(r.v_base + stage * kVChunk, vmap, full, kc * chunk_elems, t * BN);
+            const uint32_t dst = r.v_base + stage * kVChunk;
+            if constexpr (VT) {
+                // vT: one 64 x 64 box per consumer half, corpus rows 64h..
+                for (int h = 0; h < kConsumers; ++h)
+                    tma_load(dst + h * WN * KB, vmap, full, t * BN + h * WN, kc * chunk_elems);
+            } else {
+                tma_load(dst, vmap, full, kc * chunk_elems, t * BN);
+            }
             if (!r.q_resident)
                 tma_load(r.base + stage * kQChunk, qmap, full, kc * chunk_elems, q0);
             if (++stage == r.stages) {
@@ -325,6 +358,45 @@ __device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* qmap,
 // 0..kEpilogueChunk are queued on the tensor cores when it starts.
 constexpr int kEpilogueChunk = 2;
 
+// A consumer's place in the ring: the next stage and its phase, the oldest
+// stage it has not released, and how many it holds.
+struct Cursor {
+    int stage = 0, oldest = 0, held = 0;
+    uint32_t phase = 0;
+};
+
+// Free every stage but the newest `keep`, oldest first.
+__device__ __forceinline__ void release(const Ring& r, Cursor& c, int keep) {
+    __syncwarp();
+    for (; c.held > keep; --c.held) {
+        if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * c.oldest);
+        if (++c.oldest == r.stages) c.oldest = 0;
+    }
+}
+
+// Wait for the next stage and queue chunk kc of it (the query chunk with this
+// consumer's half of the corpus chunk) on acc as one wgmma group; `fresh`
+// overwrites acc (scale_d = 0 on the first k step).
+template <bool VT, typename Acc>
+__device__ __forceinline__ void mma_chunk(const Ring& r, Cursor& c, Acc (&acc)[kAcc], int kc,
+                                            bool fresh) {
+    const int w = threadIdx.x / 128 - 1;
+    mbar_wait(r.full + 8 * c.stage, c.phase);
+    const uint64_t da = desc_sw128(r.base + (r.q_resident ? kc : c.stage) * kQChunk);
+    const uint64_t db = desc_sw128(r.v_base + c.stage * kVChunk + w * WN * KB);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KB / 32; ++ks)
+        mma<VT>(acc, da + 2 * ks, db + (VT ? 128 : 2) * ks, !fresh || ks != 0);
+    wgmma_commit();
+    ++c.held;
+    if (++c.stage == r.stages) {
+        c.stage = 0;
+        c.phase ^= 1;
+    }
+}
+
 // A consumer warpgroup: the products of its 64 columns of every tile in
 // [t_begin, t_end), in order. epilogue(acc, t) runs on tile t's finished
 // accumulators after tile t+1's first chunks are issued (the last tile's
@@ -337,54 +409,28 @@ template <typename Acc, typename Prefetch, typename Epilogue>
 __device__ __forceinline__ void consume(const Ring& r, int t_begin, int t_end,
                                         Prefetch&& prefetch, Epilogue&& epilogue) {
     if (t_end <= t_begin) return;
-    const int w = threadIdx.x / 128 - 1;
-    const uint32_t v_col = w * WN * KB;
     const int epi_kc = kEpilogueChunk < r.nk - 1 ? kEpilogueChunk : r.nk - 1;
     const int prefetch_kc = r.nk / 2 > epi_kc ? r.nk / 2 : epi_kc;
     if (r.q_resident) mbar_wait(r.qbar, 0);
 
     Acc acc0[kAcc], acc1[kAcc];
-    int stage = 0, oldest = 0, held = 0;   // ring position; stages not yet released
-    uint32_t phase = 0;
-
-    // free every stage but the newest `keep`, oldest first
-    auto release = [&](int keep) {
-        __syncwarp();
-        for (; held > keep; --held) {
-            if ((threadIdx.x & 31) == 0) mbar_arrive(r.empty + 8 * oldest);
-            if (++oldest == r.stages) oldest = 0;
-        }
-    };
+    Cursor c;
 
     // tile t into acc; prev holds tile t - 1 when t > t_begin
     auto tile = [&](auto& acc, auto& prev, int t) {
         for (int kc = 0; kc < r.nk; ++kc) {
-            mbar_wait(r.full + 8 * stage, phase);
-            const uint64_t da =
-                desc_sw128(r.base + (r.q_resident ? kc : stage) * kQChunk);
-            const uint64_t db = desc_sw128(r.v_base + stage * kVChunk + v_col);
-            fence_acc(acc);
-            wgmma_fence();
-#pragma unroll
-            for (int ks = 0; ks < KB / 32; ++ks)
-                mma(acc, da + 2 * ks, db + 2 * ks, (kc | ks) != 0);
-            wgmma_commit();
-            ++held;
-            if (++stage == r.stages) {
-                stage = 0;
-                phase ^= 1;
-            }
+            mma_chunk<false>(r, c, acc, kc, kc == 0);
             if (kc == epi_kc && t > t_begin) epilogue(prev, t - 1);
             if (kc == prefetch_kc) prefetch(t);
             if (kc >= epi_kc) {
                 // every group but the newest is complete: free their stages
                 wgmma_wait<1>();
-                release(1);
+                release(r, c, 1);
             }
         }
         wgmma_wait<0>();
         fence_acc(acc);
-        release(0);
+        release(r, c, 0);
     };
 
     int t = t_begin;
@@ -397,6 +443,33 @@ __device__ __forceinline__ void consume(const Ring& r, int t_begin, int t_end,
         epilogue(acc0, t_end - 1);
     else
         epilogue(acc1, t_end - 1);
+}
+
+// A consumer warpgroup without an epilogue: acc = the sum over the tiles
+// [t_begin, t_end) of its 64 columns' products, i.e. the wgmma accumulation
+// carried across tiles in one accumulator set. scale_d = 0 on the split's
+// first chunk only; each chunk frees the stage of the one before it
+// (wait_group 1), and one wait_group 0 at the end leaves acc readable.
+// acc is zero for an empty range.
+template <bool VT, typename Acc>
+__device__ __forceinline__ void consume_sum(const Ring& r, int t_begin, int t_end,
+                                            Acc (&acc)[kAcc]) {
+    if (t_end <= t_begin) {
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+        return;
+    }
+    if (r.q_resident) mbar_wait(r.qbar, 0);
+    Cursor c;
+    for (int t = t_begin; t < t_end; ++t)
+        for (int kc = 0; kc < r.nk; ++kc) {
+            mma_chunk<VT>(r, c, acc, kc, t == t_begin && kc == 0);
+            wgmma_wait<1>();
+            release(r, c, 1);
+        }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release(r, c, 0);
 }
 
 // The accumulator coordinates of this consumer thread: register 4j + 2h + e

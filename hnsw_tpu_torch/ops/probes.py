@@ -17,12 +17,13 @@ kernel minus its floor is what its selection or distance epilogue costs:
   q8_b . v8[N_t - nt + 128 s + j], the corrected floor of ``_probe_r5c.py``.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/probes.cu``: ``matmul_min`` on the Hopper mainloop of
-``csrc/wgmma.cuh``, the others on the tile loop of ``csrc/tile.cuh``) or
-raises; on a CPU tensor it runs its plain version, which walks the corpus in
-tiles as the TPU grid does. ``mm_only`` and ``mm_only_nt`` launch the same
-kernel (the TPU's ``mm_only`` is ``mm_only_factory`` at bt = B = 1024); each
-keeps its own launch count.
+(``csrc/probes.cu``, all on the Hopper mainloop of ``csrc/wgmma.cuh``: the
+column sums as the wgmma accumulation itself, ``mm_only_kmajor`` reading vT
+as it lies through an MN-major operand; ``matmul_only`` and ``matmul_min``
+as one kernel template) or raises; on a CPU tensor it runs its plain
+version, which walks the corpus in tiles as the TPU grid does. ``mm_only``
+and ``mm_only_nt`` launch the same kernel (the TPU's ``mm_only`` is
+``mm_only_factory`` at bt = B = 1024); each keeps its own launch count.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time the flat-scan kernels of the hnsw_tpu_torch tree in the current
 directory, at chip_smoke.py's shapes: 31,173 x 768 embedding-like corpus
-(cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8), and the two int8
-floors (matmul_only, matmul_min) at nt = 2048. bucket_topk and matmul_min
-run the Hopper mainloop of csrc/wgmma.cuh; int8_bucket_topk keeps its own
-inline mma.sync loop; exact_topk_sweep, int8_sweep_topk, int8_packed_topk
-and matmul_only run the shared one of csrc/tile.cuh. Prints the median of
+(cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8), then the matmul
+floors: the two int8 floors (matmul_only, matmul_min) at nt = 2048, and the
+bf16 ones, mm_only at B = 4096 over the 31,744-row pack and mm_only, its NT
+twin and mm_only_kmajor at B = 1024 over 32,768 rows. bucket_topk and every
+floor run the Hopper mainloop of csrc/wgmma.cuh; int8_bucket_topk keeps its
+own inline mma.sync loop; exact_topk_sweep, int8_sweep_topk and
+int8_packed_topk run the shared one of csrc/tile.cuh. Prints the median of
 30 CUDA-event timings of each. Kernel names given as arguments are timed
 alone, in that order (the card's state after one kernel can move the
 next one's time).
@@ -55,8 +57,8 @@ def main() -> int:
     x = kernels.probe_operands(data)
     calls = kernels.scan_calls(x)
     floors = kernels.floor_calls(x)
-    for label in ("matmul_only_b4096_nt2048", "matmul_min_b4096_nt2048"):
-        calls[label.split("_b4096")[0]] = floors[label]
+    for label, call in floors.items():
+        calls[label.replace("_b4096_nt2048", "")] = call
     names = sys.argv[1:] or list(calls)
     print(os.getcwd(), " ".join(
         f"{name}_ms {kernels.median_ms(calls[name], reps=30)}"

@@ -231,37 +231,62 @@ def test_flat_scan_kernels_on_the_card(cuda_device):
             scan.int8_bucket_topk.launches) == (before[0], before[1] + 1)
 
 
-@pytest.mark.parametrize("b,n,d", [(1024, 4096, 768), (37, 1000, 256)])
-def test_bf16_floors_match_plain_versions(b, n, d, cuda_device):
+@pytest.mark.parametrize("b,n,d,asymmetric", [
+    (1024, 4096, 768, False), (37, 1000, 256, False),
+    (100, 1088, 320, True), (70, 1000, 1536, False), (64, 8000, 256, False),
+    (8448, 1024, 128, False)])
+def test_bf16_floors_match_plain_versions(b, n, d, asymmetric, cuda_device):
     """The second shape has a B and an N that are not tile multiples (the
-    wrapper pads N to 128 rows of zeros, which add nothing). The sums are
-    exact bf16 products taken in another order: 1e-3 * max |out|."""
+    wrapper pads N to 128 rows of zeros, which add nothing). The third is
+    asymmetric (N != D, B not a multiple of 64, rows of unequal scale), and
+    reading each 64 x 64 block of vT transposed would give other sums: a
+    wrong MN-major operand of mm_only_kmajor fails it. The fourth has rows of
+    3,072 bytes, whose query block the kernels stream through their ring; the
+    fifth runs one query block over 16 corpus splits of unequal size; the
+    last fills the card's 132 SMs with query blocks alone, so its one split
+    writes the output directly. The sums are exact bf16 products taken in
+    another order: 1e-3 * max |out|."""
     g = torch.Generator(device="cpu").manual_seed(5)
     q = torch.randn(b, d, generator=g).to(torch.bfloat16).to(cuda_device)
-    v = torch.randn(n, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    v = torch.randn(n, d, generator=g)
+    if asymmetric:
+        v = v * (1 + torch.arange(n) % 7)[:, None] + torch.arange(d) / d
+    v = v.to(torch.bfloat16).to(cuda_device)
+    vT = v.T.contiguous()
     want = probes.mm_only_plain(q, v)
+    tol = 1e-3 * float(want.abs().max())
+    if asymmetric:
+        blocks = vT.reshape(d // 64, 64, n // 64, 64).transpose(1, 3)
+        wrong = probes.mm_only_kmajor_plain(q, blocks.reshape(d, n))
+        assert float((wrong - want).abs().max()) > 100 * tol
+    splits = scan._splits(-(-b // 64), -(-n // 128), cuda_device)
+    assert (splits == 1) == (b == 8448)
     for fn, arg in ((probes.mm_only, v), (probes.mm_only_nt, v),
-                    (probes.mm_only_kmajor, v.T.contiguous())):
+                    (probes.mm_only_kmajor, vT)):
         before = fn.launches
         got = fn(q, arg)
         assert fn.launches == before + 1
-        assert float((got - want).abs().max()) <= \
-            1e-3 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("b,n,d,nt", [(4096, 32768, 768, 2048),
                                       (37, 5000, 256, 2048),
-                                      (100, 3000, 3072, 1024)])
+                                      (100, 3000, 3072, 1024),
+                                      (1, 9000, 256, 1024),
+                                      (65, 20480, 384, 1024)])
 def test_int8_floors_match_plain_versions(b, n, d, nt, cuda_device):
     """int32 dots are exact: bit for bit. The second shape has a B and an N
     that are not tile multiples (the last whole nt tile is kept); the third
-    has rows of 3,072 bytes, whose query block matmul_min's wgmma kernel
-    streams through its ring instead of keeping it resident."""
+    has rows of 3,072 bytes, whose query block the kernels stream through
+    their ring instead of keeping it resident; the last two are B = 1 and 20
+    nt tiles over 16 splits. In each the kept nt tile lies in the last of
+    several corpus splits."""
     g = torch.Generator(device="cpu").manual_seed(6)
     q8 = torch.randint(-127, 128, (b, d), generator=g,
                        dtype=torch.int8).to(cuda_device)
     v8 = torch.randint(-127, 128, (n, d), generator=g,
                        dtype=torch.int8).to(cuda_device)
+    assert scan._splits(-(-b // 64), n // nt, cuda_device) > 1
     for fn, plain in ((probes.matmul_only, probes.matmul_only_plain),
                       (probes.matmul_min, probes.matmul_min_plain)):
         before = fn.launches

@@ -6,10 +6,16 @@
    kernel holds 65,536 tiles or more (it keeps a kept row as a 16-bit tile
    index within its split, 0xFFFF meaning none).
 2. ops/_cuda.py:kernel_resources, the registers and spill bytes per kernel
-   read from nvcc's ptxas report, which chip_smoke.py prints per kernel.
+   read from nvcc's ptxas report, which chip_smoke.py prints per kernel, and
+   chip_smoke.KERNEL_ENTRIES, the piece of each kernel's mangled name it
+   looks for there: each must name a __global__ kernel of its source, so
+   that a renamed kernel cannot leave its report "not built in this run".
 """
 
+import importlib.util
 import math
+import pathlib
+import re
 
 import pytest
 import torch
@@ -90,3 +96,34 @@ def test_kernel_resources_reads_the_ptxas_report():
         "_ZN3_GN24bucket_bank_wgmma_kernelILi0EEEvPKf": (168, 0),
         "_ZN3_GN18bucket_bank_kernelILb1EEEvPKh": (255, 900)}
     assert _cuda.kernel_resources("") == {}
+
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _kernel_entries():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.KERNEL_ENTRIES
+
+
+@pytest.mark.parametrize("name", sorted(_kernel_entries()))
+def test_each_ptxas_piece_names_a_kernel_of_its_source(name):
+    src, piece = _kernel_entries()[name]
+    # <length><identifier>, then I...E for the template arguments
+    m = re.fullmatch(r"(\d+)(\w*?)(I\w+E)?", piece)
+    assert m, piece
+    length, rest, targs = int(m.group(1)), m.group(2), m.group(3)
+    ident = rest[:length]
+    assert len(ident) == length and rest[length:] == "", piece
+    code = (REPO / "hnsw_tpu_torch" / "csrc" / src).read_text()
+    # the definition: [template <...>] __global__ ... ident(
+    defn = re.search(r"(template\s*<[^>]*>\s*)?__global__[^;{]*?\b"
+                     + ident + r"\s*\(", code)
+    assert defn, f"{name}: no __global__ {ident} in csrc/{src}"
+    # the piece is a prefix of the mangled name: template arguments, where
+    # it gives them, need a template
+    assert targs is None or defn.group(1) is not None, \
+        f"{name}: {piece} has template arguments, its kernel none"
