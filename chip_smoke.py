@@ -64,12 +64,13 @@ ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
 
 
 # the ptxas entry of each kernel: its source and a piece of its mangled name
-# (<length><name> and the template arguments)
+# (<length><name> and the template arguments; for hop_score_int8 the
+# single-pass instantiation, which the main path's D = 768 runs)
 KERNEL_ENTRIES = {
     "hop_score": ("hop.cu", "15hop_bf16_kernel"),
-    "hop_score_int8": ("hop.cu", "15hop_int8_kernel"),
-    "bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernel"),
-    "int8_bucket_topk": ("scan.cu", "18bucket_bank_kernelILb1E"),
+    "hop_score_int8": ("hop.cu", "15hop_int8_kernelILb0E"),
+    "bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb0E"),
+    "int8_bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb1E"),
     "exact_topk_sweep": ("sweep.cu", "12sweep_kernelILb0E"),
     "int8_sweep_topk": ("sweep.cu", "12sweep_kernelILb1E"),
     "int8_packed_topk": ("scan.cu", "18packed_bank_kernel"),
@@ -156,18 +157,13 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def check_hop_kernels(torch, records):
+    from hnsw_tpu_torch.bench.kernels import HOP_SHAPE, burst_ms, hop_operands
     from hnsw_tpu_torch.ops import hop
 
-    b, e, m0, d, n_pad = 1024, 4, 32, DIM, 31176
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    dev = torch.device("cuda")
-    queries = torch.randn(b, d, generator=g, device=dev)
-    sel = torch.randint(-1, n_pad, (b, e), generator=g, device=dev,
-                        dtype=torch.int32)
+    b, e, m0, d, n_pad = (HOP_SHAPE[k] for k in ("b", "e", "m0", "d", "n_pad"))
+    x = hop_operands(SEED)
+    queries, sel, pack, codes = x["queries"], x["sel"], x["pack"], x["codes"]
     uniq = int(torch.unique(torch.clamp(sel, min=0)).numel())
-    pack = torch.randn(n_pad, m0, d, generator=g, device=dev).to(torch.bfloat16)
-    codes = torch.randint(-127, 128, (n_pad, m0, d), generator=g, device=dev,
-                          dtype=torch.int8)
     rows = torch.clamp(sel, min=0).long()
 
     for name, tensor, fn, plain, esize in (
@@ -186,6 +182,9 @@ def check_hop_kernels(torch, records):
             check(err <= 1e-4 * float(w.abs().max()),
                   f"{name} disagrees with its plain version: {errs}")
         ms = time_ms(lambda: fn(tensor, queries, sel))
+        # the wrapper's host work before the launch is a large part of ms;
+        # back to back, the card stays busy and the kernel's time shows
+        b2b_ms = burst_ms(lambda: fn(tensor, queries, sel))
         plain_ms = time_ms(lambda: plain(tensor, queries, sel), reps=5)
         qb = queries.to(torch.bfloat16)
         lib_ms = time_ms(lambda: torch.einsum(
@@ -197,7 +196,7 @@ def check_hop_kernels(torch, records):
         bms, by = bound(nbytes, ops, BF16_OPS_S)
         say("kernel", name=name, shape=f"B={b},E={e},M0={m0},D={d},"
             f"N_pad={n_pad}", max_abs_err=max(errs),
-            tol="1e-4*max|plain|", kernel_ms=ms,
+            tol="1e-4*max|plain|", kernel_ms=ms, back_to_back_ms=b2b_ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
             **ptxas_fields(name))
         records[name] = dict(
@@ -206,7 +205,7 @@ def check_hop_kernels(torch, records):
                       else "hnsw_tpu/ops/pallas_hop.py:276"),
             max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms)
-    del pack, codes
+    del x, pack, codes
 
 
 def check_scan_kernels(torch, data, records):
@@ -263,55 +262,65 @@ def check_scan_kernels(torch, data, records):
         say("kernel", **fields)
         del vec
 
-    corpus = Corpus.from_array(data, metric="cosine")
     n_pad = 32768
-    v8, vscale = quantize_rows(corpus.vectors)
-    v8 = torch.nn.functional.pad(v8, (0, 0, 0, n_pad - corpus.n_pad))
-    vscale = torch.nn.functional.pad(vscale, (0, n_pad - corpus.n_pad))
-    vsq = torch.nn.functional.pad(corpus.sq_norms, (0, n_pad - corpus.n_pad))
-    q8, qscale = quantize_rows(corpus.pad_queries(data[:b]))
-    qmeta = torch.stack([qscale, torch.zeros_like(qscale)], dim=1)
-    vkey = scan.int8_vkey(vscale, vsq, "cosine")
-    kd, kr = scan.int8_bucket_bank(v8, vkey, vscale, q8, qscale, corpus.n,
-                                   metric="cosine")
-    pd, pr = scan.int8_bucket_bank_plain(v8, vkey, vscale, q8, qscale,
-                                         corpus.n, metric="cosine")
-    torch.cuda.synchronize()
-    live = (pd < 1e29) & (kd < 1e29)
-    err = float((kd - pd).abs()[live].max())
-    # int32 dots are exact on both sides; the key is one f32 multiply
-    check(err <= 1e-3, f"int8_bucket_topk: key error {err}")
-    pk = torch.sort(pd, dim=-1, stable=True)
-    for k in (16, 10):
-        dk, rk = scan.int8_bucket_topk(v8, vscale, vsq, q8, qmeta, corpus.n,
-                                       k=k, metric="cosine", bt=256,
-                                       nt=2048)
-        prow = torch.gather(pr, -1, pk.indices[:, :k])
-        agree = float((rk == prow).float().mean())
-        check(agree >= 0.999, f"int8_bucket_topk k={k}: agreement {agree}")
-        say("kernel", name="int8_bucket_topk", metric="cosine",
-            shape=f"B={b},N_pad={n_pad},D={d},k={k}", max_abs_err=err,
-            tol=1e-3, row_agreement=agree, row_agreement_bar=0.999,
+    for metric in ("cosine", "euclidean", "dot"):
+        corpus = Corpus.from_array(data, metric=metric)
+        v8, vscale = quantize_rows(corpus.vectors)
+        v8 = torch.nn.functional.pad(v8, (0, 0, 0, n_pad - corpus.n_pad))
+        vscale = torch.nn.functional.pad(vscale, (0, n_pad - corpus.n_pad))
+        vsq = torch.nn.functional.pad(corpus.sq_norms,
+                                      (0, n_pad - corpus.n_pad))
+        q8, qscale = quantize_rows(corpus.pad_queries(data[:b]))
+        qmeta = torch.stack([qscale, torch.zeros_like(qscale)], dim=1)
+        vkey = scan.int8_vkey(vscale, vsq, metric)
+        kd, kr = scan.int8_bucket_bank(v8, vkey, vscale, q8, qscale, corpus.n,
+                                       metric=metric)
+        pd, pr = scan.int8_bucket_bank_plain(v8, vkey, vscale, q8, qscale,
+                                             corpus.n, metric=metric)
+        torch.cuda.synchronize()
+        live = (pd < 1e29) & (kd < 1e29)
+        err = float((kd - pd).abs()[live].max())
+        # int32 dots are exact on both sides, and the key's f32 operations
+        # are the plain version's
+        check(err <= 1e-3, f"int8_bucket_topk {metric}: key error {err}")
+        pk = torch.sort(pd, dim=-1, stable=True)
+        for k in (16, 10):
+            dk, rk = scan.int8_bucket_topk(v8, vscale, vsq, q8, qmeta,
+                                           corpus.n, k=k, metric=metric,
+                                           bt=256, nt=2048)
+            prow = torch.gather(pr, -1, pk.indices[:, :k])
+            agree = float((rk == prow).float().mean())
+            check(agree >= 0.999,
+                  f"int8_bucket_topk {metric} k={k}: agreement {agree}")
+            say("kernel", name="int8_bucket_topk", metric=metric,
+                shape=f"B={b},N_pad={n_pad},D={d},k={k}", max_abs_err=err,
+                tol=1e-3, row_agreement=agree, row_agreement_bar=0.999,
+                **ptxas_fields("int8_bucket_topk"))
+        if metric != "cosine":
+            records["int8_bucket_topk"]["max_abs_err"] = max(
+                records["int8_bucket_topk"]["max_abs_err"], err)
+            continue
+        ms = time_ms(lambda: scan.int8_bucket_bank(
+            v8, vkey, vscale, q8, qscale, corpus.n, metric="cosine"))
+        plain_ms = time_ms(lambda: scan.int8_bucket_bank_plain(
+            v8, vkey, vscale, q8, qscale, corpus.n, metric="cosine"), reps=5)
+        v8t = v8.T
+        lib_ms = time_ms(lambda: torch.topk(
+            -torch._int_mm(q8, v8t).float() * vkey, K, dim=-1), reps=10)
+        live = live_rows(corpus.n)
+        bms, by = bound(live * d + b * d + live * 8 + b * 4 + b * 256 * 8,
+                        2 * b * live * d, INT8_OPS_S)
+        say("kernel", name="int8_bucket_topk", kernel_ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bms, bound_by=by,
             **ptxas_fields("int8_bucket_topk"))
-    ms = time_ms(lambda: scan.int8_bucket_bank(
-        v8, vkey, vscale, q8, qscale, corpus.n, metric="cosine"))
-    plain_ms = time_ms(lambda: scan.int8_bucket_bank_plain(
-        v8, vkey, vscale, q8, qscale, corpus.n, metric="cosine"), reps=5)
-    v8t = v8.T
-    lib_ms = time_ms(lambda: torch.topk(
-        -torch._int_mm(q8, v8t).float() * vkey, K, dim=-1), reps=10)
-    live = live_rows(corpus.n)
-    bms, by = bound(live * d + b * d + live * 8 + b * 4 + b * 256 * 8,
-                    2 * b * live * d, INT8_OPS_S)
-    say("kernel", name="int8_bucket_topk", kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=bms, bound_by=by,
-        **ptxas_fields("int8_bucket_topk"))
-    records["int8_bucket_topk"] = dict(
-        name="int8_bucket_topk", route="cuda",
-        source="hnsw_tpu_torch/csrc/scan.cu",
-        replaces="hnsw_tpu/ops/pallas_scan.py:395",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=lib_ms)
+        records["int8_bucket_topk"] = dict(
+            name="int8_bucket_topk", route="cuda",
+            source="hnsw_tpu_torch/csrc/scan.cu",
+            replaces="hnsw_tpu/ops/pallas_scan.py:395",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+        del v8t
+    del v8
 
 
 def _row_agreement(got_r, want_r) -> float:
@@ -770,6 +779,11 @@ def api_path(torch, data):
         check(ix.size == len(data), "Index size after the wave insert")
         torch.cuda.synchronize()
         insert_s = time.perf_counter() - t0
+        # The inserted rows come back first about 0.81 of the time, as in
+        # the reference: the JAX insert on the same graph and wave gives the
+        # same graph and rows (scripts/wave_insert_card.py, then
+        # scripts/wave_insert_reference.py). The bar is the JAX tests'
+        # recall after an insert.
         new_q = data[n0:]
         _, new_truth = ht.build_index(data, "flat").search_batch(new_q, K)
         _, r = ix._impl.search_batch(new_q, K)
@@ -849,20 +863,22 @@ def probe_path(torch, data, records, floor_ms):
         say("probe", stage="floor", what=label, loop="wgmma.cuh",
             ms=floor_ms[label], us_per_chunk_per_sm=chunk_us(
                 floor_ms[label], q.shape[0], rows, row_bytes, sms))
-    say("probe", stage="chunk", what="bucket_topk B=4096", loop="wgmma.cuh",
-        ms=records["bucket_topk"]["ms"], us_per_chunk_per_sm=chunk_us(
-            records["bucket_topk"]["ms"], 4096, 31744, DIM * 2, sms))
+    for name, rows, row_bytes in (("bucket_topk", 31744, DIM * 2),
+                                  ("int8_bucket_topk", 32768, DIM)):
+        say("probe", stage="chunk", what=f"{name} B=4096", loop="wgmma.cuh",
+            ms=records[name]["ms"], us_per_chunk_per_sm=chunk_us(
+                records[name]["ms"], 4096, rows, row_bytes, sms))
     # Each scan kernel against the floor of its type, which runs the wgmma
     # mainloop (csrc/wgmma.cuh) with no epilogue at the same B and corpus:
-    # for bucket_topk, which runs that loop too, the difference is its
-    # bank; for a kernel on an mma.sync loop, its loop and its epilogue
-    # beside the new loop.
+    # for the two bucket banks, which run that loop too, the difference is
+    # the bank; for a kernel on the mma.sync loop of tile.cuh, its loop and
+    # its epilogue beside the new loop.
     floors = {"bf16": ("mm_only B=4096 N=31744", "mm_only_b4096_n31744"),
               "int8": ("matmul_only nt=2048", "matmul_only_b4096_nt2048")}
     for name, kind, loop in (
             ("bucket_topk", "bf16", "wgmma.cuh"),
             ("exact_topk_sweep", "bf16", "tile.cuh"),
-            ("int8_bucket_topk", "int8", "scan.cu (inline mma.sync)"),
+            ("int8_bucket_topk", "int8", "wgmma.cuh"),
             ("int8_sweep_topk", "int8", "tile.cuh"),
             ("int8_packed_topk", "int8", "tile.cuh")):
         ms = records[name]["ms"]

@@ -1,7 +1,7 @@
 """Operands and calls of the flat-scan kernels and their matmul floors at the
-probe scripts' shapes, for the scripts that time them on the card
-(``chip_smoke.py``, ``scripts/probe_torch.py``,
-``scripts/time_bank_kernels.py``).
+probe scripts' shapes, and of the two hop kernels at the main path's hop
+shape, for the scripts that time them on the card (``chip_smoke.py``,
+``scripts/probe_torch.py``, ``scripts/time_bank_kernels.py``).
 
 The corpus is packed for cosine and padded as the scans pad it: bf16 to
 31,744 rows (``bucket_topk``, ``exact_topk_sweep``), and bf16 and int8 to
@@ -21,6 +21,9 @@ import torch
 # the int8 floors' corpus tile (INT8_NT of the TPU scans)
 FLOOR_NT = 2048
 BF16_PACK = 31744
+# one hop of the main path: B queries, E selected blocks of M0 rows, D, and
+# the packed blocks of the 31,173-row corpus
+HOP_SHAPE = dict(b=1024, e=4, m0=32, d=768, n_pad=31176)
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -37,6 +40,28 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def burst_ms(fn, calls: int = 20, reps: int = 10, warmup: int = 3) -> float:
+    """Median device time of one fn() in ms, from `reps` runs of `calls`
+    back-to-back calls between two CUDA events: a kernel that takes longer
+    than its wrapper's host work keeps the card busy, so this reads its
+    device time where median_ms also counts the host work before the one
+    launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -138,4 +163,31 @@ def floor_calls(x) -> dict:
             probes.matmul_min, probes.matmul_min_plain,
             lambda: torch._int_mm(q8, v8t)[:, lo:lo + FLOOR_NT]
             .reshape(q8.shape[0], g, 128).amin(1), (q8, v8), nt),
+    }
+
+
+def hop_operands(seed: int = 42, device="cuda") -> dict:
+    """Random operands of one hop at HOP_SHAPE: queries [B, D] f32, selected
+    blocks [B, E] int32 (-1 included), a bf16 pack and int8 codes
+    [N_pad, M0, D]."""
+    b, e, m0, d, n_pad = (HOP_SHAPE[k] for k in ("b", "e", "m0", "d", "n_pad"))
+    g = torch.Generator(device=device).manual_seed(seed)
+    queries = torch.randn(b, d, generator=g, device=device)
+    sel = torch.randint(-1, n_pad, (b, e), generator=g, device=device,
+                        dtype=torch.int32)
+    pack = torch.randn(n_pad, m0, d, generator=g,
+                       device=device).to(torch.bfloat16)
+    codes = torch.randint(-127, 128, (n_pad, m0, d), generator=g,
+                          device=device, dtype=torch.int8)
+    return dict(queries=queries, sel=sel, pack=pack, codes=codes)
+
+
+def hop_calls(x) -> dict:
+    """kernel name -> a call of the hop kernel on hop_operands' tensors."""
+    from hnsw_tpu_torch.ops import hop
+
+    return {
+        "hop_score": lambda: hop.hop_score(x["pack"], x["queries"], x["sel"]),
+        "hop_score_int8": lambda: hop.hop_score_int8(x["codes"], x["queries"],
+                                                     x["sel"]),
     }

@@ -34,26 +34,33 @@
 // reference's _merge_pair2 rule, so an earlier row wins a tie as it does
 // there.
 //
-// bf16 (bucket_bank_wgmma_kernel, redesigned for Hopper): the mainloop of
-// wgmma.cuh. Its mma.sync predecessor (6.672 ms at B = 4096 over the
-// 31,744-row pack on the H100, bound 0.199 ms of bf16 tensor-core operations,
-// torch.matmul + torch.topk 3.376 ms) spent 77% of its time in the epilogue:
-// 4 registers per pair (255 registers and spills), each product read back
-// from a shared-memory copy of the tile, a run-time metric branch per
-// element, and one block per SM with nothing to hide the epilogue behind.
-// Now two consumer warpgroups each own 64 buckets (m64n64 wgmma, 32 pairs a
-// thread), the bank is kept in the accumulator layout with both kept rows of
-// a pair as 16-bit tile indices in one register (3 registers a pair), keys
-// are formed from the accumulator registers where they lie, the metric is a
-// template parameter, and each tile's insert runs once the next tile's first
-// products are queued (two accumulator sets; ptxas waits for them before the
-// insert, and the other consumer keeps the tensor cores busy); the vkey
-// values of the thread's 16 columns are loaded half a tile before they are
-// needed. Keys and tie rule are those of bucket_bank_kernel: full f32 keys,
-// insert2's < and <=, tiles in order. A register-light bank alone, on the
-// old loop, took the kernel from 6.5 to 1.6 ms; the new loop to 0.5 (PERF.md).
-//
-// int8 (bucket_bank_kernel<true>) keeps the mma.sync loop inline.
+// The bucket banks (bucket_bank_wgmma_kernel<INT8, METRIC>, one template for
+// bf16 and int8) run the mainloop of wgmma.cuh. Their mma.sync predecessor
+// (on the H100 at B = 4096: bf16 6.672 ms over the 31,744-row pack, int8
+// 2.710 ms over 32,768 rows, against tensor-core bounds of 0.199 and 0.099
+// ms) spent most of its time in the epilogue: 4 registers per pair (255
+// registers, 900 spill bytes in int8), each product read back from a
+// shared-memory copy of the tile, a run-time metric branch per element, and
+// one block per SM with nothing to hide the epilogue behind. Now two consumer
+// warpgroups each own 64 buckets (m64n64 wgmma: bf16 k16 into f32, or s8 k32
+// into exact s32; 32 pairs a thread), the bank is kept in the accumulator
+// layout with both kept rows of a pair as 16-bit tile indices in one
+// register (3 registers a pair), keys are formed from the accumulator
+// registers where they lie, the metric is a template parameter, and each
+// tile's insert runs once the next tile's first products are queued (two
+// accumulator sets; ptxas waits for them before the insert, and the other
+// consumer keeps the tensor cores busy). The vkey values of the thread's 16
+// columns (and for int8 euclidean their vscale) are loaded half a tile before
+// they are needed, and the int8 euclidean 2*qscale of the thread's two query
+// rows once. Keys are bit for bit those of the plain versions: bf16 as
+// listed above; int8 from the exact s32 dot converted to f32 (exact below
+// 2^24), then __fmul_rn(-dot, vkey), or for euclidean
+// __fsub_rn(vkey, __fmul_rn(__fmul_rn(2*qscale, vscale), dot)). Ties follow
+// insert2_packed's < and <=, tiles in order. A register-light bank alone, on the
+// old loop, took the bf16 kernel from 6.5 to 1.6 ms; the new loop to 0.5
+// (PERF.md). The int8 epilogue has the shorter loop of the two to hide
+// behind (6 chunks a tile at D = 768, not 12) and converts each s32 dot to
+// f32 at a quarter of the FMA rate.
 //
 // The packed kernel keeps, per (query, bucket), the two smallest packed int32
 // keys over the nt/128 sub-tiles of each nt-row tile: they are unique within
@@ -63,6 +70,8 @@
 // buffer, with _merge_pair2 in tile order, as the reference does per grid
 // step. Splits are aligned to nt-row tiles. Its keys are one exact int32 dot,
 // one __fmul_rn and one __fadd_rn, bit for bit those of the plain version.
+
+#include <type_traits>
 
 #include "tile.cuh"
 #include "wgmma.cuh"
@@ -74,16 +83,6 @@ namespace {
 constexpr int kPairs = BM * BN / kThreads;   // (query, bucket) pairs per thread
 constexpr int INVALID_PACKED = 0x7F000000;   // sorts after every biased key
 constexpr float PACK_BIAS = 16384.f;
-
-// The reference's _merge_pair2 for one incoming candidate (x, row) whose row
-// is later than both kept rows: a tie with the best keeps the earlier best.
-__device__ __forceinline__ void insert2(float x, int row, float& d1, int& r1, float& d2, int& r2) {
-    if (x < d1) {
-        d2 = d1; r2 = r1; d1 = x; r1 = row;
-    } else if (x <= d2) {
-        d2 = x; r2 = row;
-    }
-}
 
 // _merge_pair2: smallest two of {a1, a2, b1, b2} (a1 <= a2, b1 <= b2), with
 // a (the earlier rows) winning ties against b on the first comparison.
@@ -99,163 +98,6 @@ __device__ __forceinline__ void merge2(float& a1, int& ai1, float& a2, int& ai2,
     a1 = n1; ai1 = ni1;
     a2 = mid <= o2 ? mid : o2;
     ai2 = mid <= o2 ? mi : oi2;
-}
-
-// The bucketed kernels keep the tile loop of tile.cuh inline: routed through
-// product_tiles (an epilogue lambda), the int8 kernel compiled to more
-// spills and ran 1.28x slower on the H100 in a same-call comparison.
-template <bool INT8>
-__global__ void __launch_bounds__(kThreads, 1)
-bucket_bank_kernel(const uint8_t* __restrict__ vectors, const float* __restrict__ vkey,
-                   const float* __restrict__ vscale, const uint8_t* __restrict__ queries,
-                   const float* __restrict__ qscale, float* __restrict__ part_d,
-                   int* __restrict__ part_r, int B, int N_pad, int D, int n, int metric,
-                   int splits) {
-    __shared__ __align__(16) uint8_t smem[kSmem];
-    uint8_t* Qs = smem;                 // [BM][LDS] bytes of the query chunk
-    uint8_t* Vs = smem + BM * LDS;      // [BN][LDS] bytes of the corpus chunk
-    float* Cs = reinterpret_cast<float*>(smem);   // [BM][LDC], aliases Qs/Vs
-
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t4 = lane & 3;
-    const int warp_m = warp >> 2, warp_n = warp & 3;   // 2 x 4 warps of 32 x 32
-    const int q0 = blockIdx.x * BM;
-    const int split = blockIdx.y;
-    const int row_bytes = INT8 ? D : 2 * D;
-    const int nk = row_bytes / KB;
-    const int ntiles_all = N_pad / BN;
-    const int t_begin = (int)((long long)split * ntiles_all / splits);
-    const int t_end = (int)((long long)(split + 1) * ntiles_all / splits);
-    const long long total = (long long)(t_end - t_begin) * nk;
-
-    // epilogue ownership: bucket c, queries qh, qh+2, ..., qh+62
-    const int c = tid & (BN - 1), qh = tid >> 7;
-    float d1[kPairs], d2[kPairs];
-    int r1[kPairs], r2[kPairs];
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) { d1[i] = BIG; d2[i] = BIG; r1[i] = -1; r2[i] = -1; }
-
-    float acc[2][4][4];
-    uint4 qreg[2], vreg[4];
-
-    auto prefetch = [&](long long it) {
-        const int tile = t_begin + (int)(it / nk), kc = (int)(it % nk);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int idx = tid + i * kThreads, r = idx >> 3, col = (idx & 7) * 16;
-            qreg[i] = (q0 + r < B)
-                ? __ldg(reinterpret_cast<const uint4*>(
-                      queries + (long long)(q0 + r) * row_bytes + kc * KB + col))
-                : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int idx = tid + i * kThreads, r = idx >> 3, col = (idx & 7) * 16;
-            vreg[i] = __ldg(reinterpret_cast<const uint4*>(
-                vectors + (long long)(tile * BN + r) * row_bytes + kc * KB + col));
-        }
-    };
-
-    if (total > 0) prefetch(0);
-    for (long long it = 0; it < total; ++it) {
-        const int tile = t_begin + (int)(it / nk), kc = (int)(it % nk);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int idx = tid + i * kThreads;
-            *reinterpret_cast<uint4*>(Qs + (idx >> 3) * LDS + (idx & 7) * 16) = qreg[i];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int idx = tid + i * kThreads;
-            *reinterpret_cast<uint4*>(Vs + (idx >> 3) * LDS + (idx & 7) * 16) = vreg[i];
-        }
-        __syncthreads();
-        if (it + 1 < total) prefetch(it + 1);
-        if (kc == 0) {
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;   // also s32 zero
-        }
-        // four 32-byte k-steps per chunk: k16 for bf16, k32 for s8 (same bytes)
-#pragma unroll
-        for (int ks = 0; ks < KB; ks += 32) {
-            uint32_t a[2][4], b[4][2];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-                const uint8_t* p = Qs + (warp_m * 32 + mi * 16 + g) * LDS + ks + t4 * 4;
-                a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-                a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-                a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-                a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
-            }
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-                const uint8_t* p = Vs + (warp_n * 32 + ni * 8 + g) * LDS + ks + t4 * 4;
-                b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-                b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-            }
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma<INT8>(acc[mi][ni], a[mi], b[ni]);
-        }
-        if (kc != nk - 1) continue;
-
-        // ---- tile epilogue: products -> keys -> best-two per bucket ----
-        __syncthreads();
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-                const int r0 = warp_m * 32 + mi * 16 + g;
-                const int c0 = warp_n * 32 + ni * 8 + t4 * 2;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    float v = acc[mi][ni][j];
-                    if (INT8) v = (float)__float_as_int(v);
-                    Cs[(r0 + (j >> 1) * 8) * LDC + c0 + (j & 1)] = v;
-                }
-            }
-        __syncthreads();
-        const int row = tile * BN + c;
-        const float vk = vkey[row];
-        const float vs = INT8 ? vscale[row] : 0.f;
-        const bool live = row < n;
-#pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-            const int q = qh + 2 * i;
-            const float dot = Cs[q * LDC + c];
-            float key;
-            if (metric == EUCLIDEAN) {
-                if (INT8) {
-                    const float qs = (q0 + q < B) ? qscale[q0 + q] : 0.f;
-                    key = __fsub_rn(vk, __fmul_rn(__fmul_rn(2.f * qs, vs), dot));
-                } else {
-                    key = vk - 2.f * dot;
-                }
-            } else if (metric == COSINE || INT8) {
-                key = __fmul_rn(-dot, vk);
-            } else {
-                key = -dot;
-            }
-            insert2(live ? key : BIG, row, d1[i], r1[i], d2[i], r2[i]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-        const int q = q0 + qh + 2 * i;
-        if (q >= B) continue;
-        const long long base = ((long long)split * B + q) * (2 * BN);
-        part_d[base + c] = d1[i];
-        part_d[base + BN + c] = d2[i];
-        part_r[base + c] = r1[i];
-        part_r[base + BN + c] = r2[i];
-    }
 }
 
 __device__ __forceinline__ void decode_packed(int p, int gmask, int tile_row0, int c, float& key,
@@ -332,8 +174,11 @@ packed_bank_kernel(const uint8_t* __restrict__ v8, const float* __restrict__ nvk
     });
 }
 
-// insert2 on a bank whose two kept rows are 16-bit tile indices within the
-// split, packed in one register: best in the low half, second in the high.
+// The reference's _merge_pair2 for one incoming candidate (x, tile index ti)
+// whose row is later than both kept rows: a tie with the best keeps the
+// earlier best (<), a tie with the second takes the later row (<=). The two
+// kept rows are 16-bit tile indices within the split, packed in one
+// register: best in the low half, second in the high.
 __device__ __forceinline__ void insert2_packed(float x, uint32_t ti, float& d1, float& d2,
                                                uint32_t& rr) {
     const bool b1 = x < d1, b2 = x <= d2;
@@ -346,18 +191,26 @@ __device__ __forceinline__ void insert2_packed(float x, uint32_t ti, float& d1, 
 
 constexpr uint32_t NO_TILE = 0xFFFFu;
 
-// The bf16 bank on the Hopper mainloop of wgmma.cuh. Consumer thread state:
-// 32 (query, bucket) pairs, each two f32 keys and one register holding both
-// kept rows as 16-bit tile indices (the bucket is the column, fixed by the
-// register's position), so 3 registers a pair where bucket_bank_kernel keeps
-// 4; 32 per accumulator set, two sets; the 16 vkey values of the thread's
-// columns of the next tile to finish. The metric is a template parameter.
-template <int METRIC>
+// element e of a column pair
+__device__ __forceinline__ float pick(float2 v, int e) { return e ? v.y : v.x; }
+
+// The bf16 (INT8 = false) and int8 banks on the Hopper mainloop of
+// wgmma.cuh. Consumer thread state: 32 (query, bucket) pairs, each two f32
+// keys and one register holding both kept rows as 16-bit tile indices (the
+// bucket is the column, fixed by the register's position), so 3 registers a
+// pair; 32 accumulators per set, two sets; the 16 vkey values of the
+// thread's columns of the next tile to finish, and for int8 euclidean their
+// 16 vscale values and the thread's two 2*qscale. vscale and qscale are read
+// only for int8 euclidean.
+template <bool INT8, int METRIC>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 bucket_bank_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                          __grid_constant__ const CUtensorMap vmap, const float* __restrict__ vkey,
+                         const float* __restrict__ vscale, const float* __restrict__ qscale,
                          float* __restrict__ part_d, int* __restrict__ part_r, int B, int N_pad,
                          int n, int nk, int stages, int q_resident, int splits) {
+    using Acc = typename std::conditional<INT8, int, float>::type;
+    constexpr bool kScales = INT8 && METRIC == EUCLIDEAN;
     extern __shared__ uint8_t smem_raw[];
     const wg::Ring ring = wg::setup(smem_raw, nk, stages, q_resident);
     const int q0 = blockIdx.x * wg::BM, split = blockIdx.y;
@@ -368,7 +221,7 @@ bucket_bank_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     if (threadIdx.x < 128) {
         wg::producer_regs();
         if (threadIdx.x == 0)
-            wg::produce(ring, &qmap, &vmap, q0, t_begin, t_end, wg::KB / 2);
+            wg::produce(ring, &qmap, &vmap, q0, t_begin, t_end, INT8 ? wg::KB : wg::KB / 2);
     } else {
         wg::consumer_regs();
         const wg::Frag f = wg::frag();
@@ -377,17 +230,32 @@ bucket_bank_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
 #pragma unroll
         for (int i = 0; i < wg::kAcc; ++i) { d1[i] = BIG; d2[i] = BIG; rr[i] = 0xFFFFFFFFu; }
         float2 vk[wg::WN / 8];
+        float2 vs[kScales ? wg::WN / 8 : 1];
+        float qs2[2];
+        if constexpr (kScales) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int q = q0 + f.row0 + 8 * h;
+                qs2[h] = q < B ? 2.f * qscale[q] : 0.f;
+            }
+        }
 
-        wg::consume<float>(ring, t_begin, t_end,
-                           [&](int tile) {
-            if constexpr (METRIC != DOT) {
+        wg::consume<Acc>(ring, t_begin, t_end,
+                         [&](int tile) {
+            if constexpr (INT8 || METRIC != DOT) {
 #pragma unroll
                 for (int j = 0; j < wg::WN / 8; ++j)
                     vk[j] = __ldg(reinterpret_cast<const float2*>(vkey + tile * wg::BN +
                                                                   f.col0 + 8 * j));
             }
+            if constexpr (kScales) {
+#pragma unroll
+                for (int j = 0; j < wg::WN / 8; ++j)
+                    vs[j] = __ldg(reinterpret_cast<const float2*>(vscale + tile * wg::BN +
+                                                                  f.col0 + 8 * j));
+            }
         },
-                           [&](auto& acc, int tile) {
+                         [&](auto& acc, int tile) {
             const uint32_t ti = (uint32_t)(tile - t_begin);
             const int lim = n - tile * wg::BN - f.col0;   // column offsets below lim are live
 #pragma unroll
@@ -397,12 +265,16 @@ bucket_bank_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
                         const int i = 4 * j + 2 * h + e;
-                        const float dot = acc[i];
-                        const float vkv = e ? vk[j].y : vk[j].x;
-                        float key;
-                        if (METRIC == COSINE) key = __fmul_rn(-dot, vkv);
-                        else if (METRIC == EUCLIDEAN) key = vkv - 2.f * dot;
-                        else key = -dot;
+                        // an s32 dot converts exactly below 2^24 (D <= 1040)
+                        const float dot = static_cast<float>(acc[i]);
+                        float key = -dot;   // bf16 dot
+                        if constexpr (kScales)
+                            key = __fsub_rn(pick(vk[j], e),
+                                            __fmul_rn(__fmul_rn(qs2[h], pick(vs[j], e)), dot));
+                        else if constexpr (INT8 || METRIC == COSINE)
+                            key = __fmul_rn(-dot, pick(vk[j], e));
+                        else if constexpr (METRIC == EUCLIDEAN)
+                            key = pick(vk[j], e) - 2.f * dot;
                         insert2_packed(8 * j + e < lim ? key : BIG, ti, d1[i], d2[i], rr[i]);
                     }
         });
@@ -432,28 +304,30 @@ bucket_bank_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     }
 }
 
-// The bf16 bank: tensor maps, shared memory, launch. Every split must hold
-// fewer than 65,536 tiles (16-bit tile indices; the wrapper plans so).
-int launch_bank_bf16(const void* vectors, const void* vkey, const void* queries, void* part_d,
-                     void* part_r, int B, int N_pad, int D, int n, int metric, int splits,
-                     cudaStream_t stream) {
+// A bank: tensor maps, shared memory, launch. Every split must hold fewer
+// than 65,536 tiles (16-bit tile indices; the wrapper plans so).
+template <bool INT8>
+int launch_bank(const void* vectors, const void* vkey, const void* vscale, const void* queries,
+                const void* qscale, void* part_d, void* part_r, int B, int N_pad, int D, int n,
+                int metric, int splits, cudaStream_t stream) {
     const int ntiles = N_pad / wg::BN;
     if ((ntiles + splits - 1) / splits >= (int)NO_TILE + 1) return (int)cudaErrorInvalidValue;
-    const int row_bytes = 2 * D;
+    const int row_bytes = INT8 ? D : 2 * D;
     const wg::Plan p = wg::plan(row_bytes);
     CUtensorMap qmap, vmap;
-    int err = wg::encode_rows(&qmap, queries, row_bytes, B, wg::BM, false);
-    if (err == 0) err = wg::encode_rows(&vmap, vectors, row_bytes, N_pad, wg::BN, false);
+    int err = wg::encode_rows(&qmap, queries, row_bytes, B, wg::BM, INT8);
+    if (err == 0) err = wg::encode_rows(&vmap, vectors, row_bytes, N_pad, wg::BN, INT8);
     if (err != 0) return err;
-    auto kernel = metric == COSINE      ? bucket_bank_wgmma_kernel<COSINE>
-                  : metric == EUCLIDEAN ? bucket_bank_wgmma_kernel<EUCLIDEAN>
-                                        : bucket_bank_wgmma_kernel<DOT>;
+    auto kernel = metric == COSINE      ? bucket_bank_wgmma_kernel<INT8, COSINE>
+                  : metric == EUCLIDEAN ? bucket_bank_wgmma_kernel<INT8, EUCLIDEAN>
+                                        : bucket_bank_wgmma_kernel<INT8, DOT>;
     err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != 0) return err;
     const dim3 grid((B + wg::BM - 1) / wg::BM, splits);
     kernel<<<grid, wg::kThreads, p.smem, stream>>>(
-        qmap, vmap, (const float*)vkey, (float*)part_d, (int*)part_r, B, N_pad, n,
-        row_bytes / wg::KB, p.stages, p.q_resident, splits);
+        qmap, vmap, (const float*)vkey, (const float*)vscale, (const float*)qscale,
+        (float*)part_d, (int*)part_r, B, N_pad, n, row_bytes / wg::KB, p.stages, p.q_resident,
+        splits);
     return (int)cudaGetLastError();
 }
 
@@ -483,8 +357,8 @@ extern "C" int bucket_bank_bf16(const void* vectors, const void* vkey, const voi
                                 void* part_d, void* part_r, int B, int N_pad, int D, int n,
                                 int metric, int splits, void* stream) {
     if (B > 0 && splits > 0)
-        return launch_bank_bf16(vectors, vkey, queries, part_d, part_r, B, N_pad, D, n, metric,
-                                splits, (cudaStream_t)stream);
+        return launch_bank<false>(vectors, vkey, nullptr, queries, nullptr, part_d, part_r, B,
+                                  N_pad, D, n, metric, splits, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 
@@ -492,12 +366,9 @@ extern "C" int bucket_bank_int8(const void* v8, const void* vkey, const void* vs
                                 const void* q8, const void* qscale, void* part_d, void* part_r,
                                 int B, int N_pad, int D, int n, int metric, int splits,
                                 void* stream) {
-    if (B > 0 && splits > 0) {
-        const dim3 grid((B + BM - 1) / BM, splits);
-        bucket_bank_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)v8, (const float*)vkey, (const float*)vscale, (const uint8_t*)q8,
-            (const float*)qscale, (float*)part_d, (int*)part_r, B, N_pad, D, n, metric, splits);
-    }
+    if (B > 0 && splits > 0)
+        return launch_bank<true>(v8, vkey, vscale, q8, qscale, part_d, part_r, B, N_pad, D, n,
+                                 metric, splits, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

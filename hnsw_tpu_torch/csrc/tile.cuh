@@ -1,7 +1,6 @@
 // The 64 x 128 product-tile loop of the flat-scan kernels: the sweep kernels
-// (sweep.cu) and the packed kernel (scan.cu) call it; the int8 bucketed
-// kernel of scan.cu keeps the same loop inline (see there). The bf16 bucket
-// bank and the matmul floors run the Hopper mainloop of wgmma.cuh instead.
+// (sweep.cu) and the packed kernel (scan.cu) call it. The bucket banks and
+// the matmul floors run the Hopper mainloop of wgmma.cuh instead.
 //
 // A block of 256 threads owns 64 queries and walks a range of 128-row corpus
 // tiles. Eight warps compute each 64 x 128 product tile with mma.sync

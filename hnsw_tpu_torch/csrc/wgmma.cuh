@@ -3,12 +3,12 @@
 // resident in shared memory, and an epilogue that works on the accumulator
 // registers in place.
 //
-// Used by csrc/scan.cu (bucket_bank_wgmma_kernel, the bf16 bucket bank) and
-// by every matmul floor of csrc/probes.cu (last_tile_kernel: matmul_only and
-// matmul_min; colsum_kernel: mm_only, mm_only_nt and, with an MN-major corpus
-// operand, mm_only_kmajor). It replaces, for those, the mma.sync loop of
-// csrc/tile.cuh, which the sweep and packed kernels keep (and the int8 bucket
-// bank inline): 8 warps of mma.sync fed through registers, one 128-byte K
+// Used by csrc/scan.cu (bucket_bank_wgmma_kernel, the bf16 and int8 bucket
+// banks) and by every matmul floor of csrc/probes.cu (last_tile_kernel:
+// matmul_only and matmul_min; colsum_kernel: mm_only, mm_only_nt and, with an
+// MN-major corpus operand, mm_only_kmajor). It replaces, for those, the
+// mma.sync loop of csrc/tile.cuh, which the sweep and packed kernels keep:
+// 8 warps of mma.sync fed through registers, one 128-byte K
 // chunk staged between two __syncthreads, the query block staged again for
 // every corpus tile, and each finished 64 x 128 product tile written to
 // shared memory as f32 for the epilogue. That loop ran at 8-9x its

@@ -308,8 +308,8 @@ def int8_sweep_topk_plain(v8, vscale, v_sq, q8, qmeta, n, *, k: int,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-# tiles a split may hold: the bf16 bank kernel keeps a kept row as its 16-bit
-# tile index within the split, 0xFFFF meaning none
+# tiles a split may hold: the bank kernels (bf16 and int8) keep a kept row
+# as its 16-bit tile index within the split, 0xFFFF meaning none
 MAX_SPLIT_TILES = 0xFFFF
 
 

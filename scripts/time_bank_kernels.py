@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Time the flat-scan kernels of the hnsw_tpu_torch tree in the current
-directory, at chip_smoke.py's shapes: 31,173 x 768 embedding-like corpus
-(cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8), then the matmul
-floors: the two int8 floors (matmul_only, matmul_min) at nt = 2048, and the
-bf16 ones, mm_only at B = 4096 over the 31,744-row pack and mm_only, its NT
-twin and mm_only_kmajor at B = 1024 over 32,768 rows. bucket_topk and every
-floor run the Hopper mainloop of csrc/wgmma.cuh; int8_bucket_topk keeps its
-own inline mma.sync loop; exact_topk_sweep, int8_sweep_topk and
-int8_packed_topk run the shared one of csrc/tile.cuh. Prints the median of
-30 CUDA-event timings of each. Kernel names given as arguments are timed
-alone, in that order (the card's state after one kernel can move the
-next one's time).
+"""Time the flat-scan and hop kernels of the hnsw_tpu_torch tree in the
+current directory, at chip_smoke.py's shapes: 31,173 x 768 embedding-like
+corpus (cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8), then the
+matmul floors: the two int8 floors (matmul_only, matmul_min) at nt = 2048,
+and the bf16 ones, mm_only at B = 4096 over the 31,744-row pack and
+mm_only, its NT twin and mm_only_kmajor at B = 1024 over 32,768 rows; then
+the two hop kernels at one hop of B = 1024, E = 4, M0 = 32, D = 768. Both
+bucket banks and every floor run the Hopper mainloop of csrc/wgmma.cuh;
+exact_topk_sweep, int8_sweep_topk and int8_packed_topk run the mma.sync
+loop of csrc/tile.cuh; the hop kernels their own gather loops (csrc/hop.cu).
+Prints the median of 30 CUDA-event timings of each call (the host work
+before its launch included), then, on a second line, each kernel's time
+in a run of 20 calls back to back (its device time, where that is longer
+than the host work). Kernel names given as arguments are timed alone, in
+that order (the card's state after one kernel can move the next one's
+time).
 
 To compare two trees on one card, unpack the other tree (for example the
 parent commit: git archive HEAD hnsw_tpu_torch | tar -x -C <dir>) and run,
@@ -59,10 +63,14 @@ def main() -> int:
     floors = kernels.floor_calls(x)
     for label, call in floors.items():
         calls[label.replace("_b4096_nt2048", "")] = call
+    calls.update(kernels.hop_calls(kernels.hop_operands()))
     names = sys.argv[1:] or list(calls)
     print(os.getcwd(), " ".join(
         f"{name}_ms {kernels.median_ms(calls[name], reps=30)}"
         for name in names), flush=True)
+    print(os.getcwd(), "back-to-back:", " ".join(
+        f"{name}_ms {kernels.burst_ms(calls[name])}" for name in names),
+        flush=True)
     return 0
 
 

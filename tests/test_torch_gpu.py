@@ -295,15 +295,16 @@ def test_int8_floors_match_plain_versions(b, n, d, nt, cuda_device):
         torch.testing.assert_close(got, plain(q8, v8, nt=nt), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
-def test_bucket_bank_breaks_exact_ties_like_the_plain_version(metric,
+def test_bucket_bank_breaks_exact_ties_like_the_plain_version(metric, kind,
                                                               cuda_device):
     """A corpus of five distinct vectors repeated in a fixed pattern: every
     kept key ties with others, in one tile (across buckets), in two tiles of
     one split and in two splits, so the tie rule alone picks every kept row.
     Identical rows give bit-identical keys on both sides, so the rows must
     equal the plain version's (nt=128) everywhere; n is not a multiple of
-    128."""
+    128. The int8 bank's keys are the plain version's bit for bit."""
     g = torch.Generator(device="cpu").manual_seed(9)
     b, n_pad, d, n = 70, 4096, 256, 4000
     base = torch.nn.functional.normalize(torch.randn(5, d, generator=g), dim=1)
@@ -312,16 +313,88 @@ def test_bucket_bank_breaks_exact_ties_like_the_plain_version(metric,
     q = (base[torch.randint(0, 5, (b,), generator=g)]
          + 0.02 * torch.randn(b, d, generator=g))
     vsq = (v * v).sum(1)
-    vb, vk, qb = [t.to(cuda_device) for t in
-                  (v.to(torch.bfloat16), scan.bf16_vkey(vsq, metric),
-                   q.to(torch.bfloat16))]
     assert scan._splits(-(-b // 64), n_pad // 128, cuda_device) > 1
-    kd, kr = scan.bucket_bank(vb, vk, qb, n, metric=metric)
-    pd, pr = scan.bucket_bank_plain(vb, vk, qb, n, metric=metric, nt=128)
+    if kind == "bf16":
+        args = [t.to(cuda_device) for t in
+                (v.to(torch.bfloat16), scan.bf16_vkey(vsq, metric),
+                 q.to(torch.bfloat16))]
+        kd, kr = scan.bucket_bank(*args, n, metric=metric)
+        pd, pr = scan.bucket_bank_plain(*args, n, metric=metric, nt=128)
+    else:
+        v8, vs = quantize_rows(v)
+        q8, qs = quantize_rows(q)
+        args = [t.to(cuda_device) for t in
+                (v8, scan.int8_vkey(vs, vsq, metric), vs, q8, qs)]
+        kd, kr = scan.int8_bucket_bank(*args, n, metric=metric)
+        pd, pr = scan.int8_bucket_bank_plain(*args, n, metric=metric, nt=128)
+        assert bool(torch.equal(kd, pd))
     live = pd < 1e29
     assert bool(live.all())
     assert bool(torch.equal(kr[live], pr[live]))
     np.testing.assert_allclose(kd[live].cpu(), pd[live].cpu(), atol=KEY_TOL)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+@pytest.mark.parametrize("b,n_pad,d,n", [(1, 20480, 256, 20000),
+                                         (8448, 1024, 128, 1000),
+                                         (70, 4096, 3072, 4000)])
+def test_int8_bucket_bank_is_the_plain_version_bit_for_bit(b, n_pad, d, n,
+                                                           metric,
+                                                           cuda_device):
+    """The int8 bank forms exact s32 dots and the plain version's f32 key
+    operations, and merges its splits in order with the plain version's
+    tie rule, so keys and rows equal the plain version's (nt=128)
+    everywhere. The shapes: B = 1 over 16 corpus splits, n not a multiple
+    of 128; one split (132 query blocks fill the card's SMs); rows of 3,072
+    bytes, whose query block the kernel streams through its ring."""
+    g = torch.Generator(device="cpu").manual_seed(10)
+    v = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g),
+                                      dim=1)
+    q = v[torch.randint(0, n, (b,), generator=g)] + 0.01
+    if metric != "cosine":
+        v = v * (1 + torch.arange(n_pad) % 3)[:, None]
+    vsq = (v * v).sum(1)
+    v8, vs = quantize_rows(v)
+    q8, qs = quantize_rows(q)
+    args = [t.to(cuda_device) for t in
+            (v8, scan.int8_vkey(vs, vsq, metric), vs, q8, qs)]
+    splits = scan._splits(-(-b // 64), n_pad // 128, cuda_device)
+    assert (splits == 1) == (b == 8448) and (b > 1 or splits == 16)
+    before = scan.int8_bucket_topk.launches
+    kd, kr = scan.int8_bucket_bank(*args, n, metric=metric)
+    assert scan.int8_bucket_topk.launches == before + 1
+    pd, pr = scan.int8_bucket_bank_plain(*args, n, metric=metric, nt=128)
+    assert bool(torch.equal(kd, pd))
+    assert bool(torch.equal(kr, pr))
+
+
+@pytest.mark.parametrize("b,e,m0,d", [(1, 4, 32, 768), (37, 3, 7, 768),
+                                      (5, 2, 9, 128), (3, 5, 11, 1536),
+                                      (2, 2, 5, 2064), (4, 1, 3, 16)])
+def test_hop_score_int8_shapes(b, e, m0, d, cuda_device):
+    """The int8 hop kernel at B = 1, at E * M0 that is not a multiple of the
+    rows a warp scores at once, at D = 16, 128, 768 (the 8-byte units of a
+    row fill 2 lanes, half of one step, three full steps), at D = 1,536 and
+    2,064 (two and three passes of 768 bytes, the last one partly idle),
+    with selected rows -1 (row 0) and >= N_pad (clamped to the last row):
+    within 1e-4 of the largest plain dot (f32 sums of exact products in
+    another order)."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    n_pad = 50
+    codes = torch.randint(-128, 128, (n_pad, m0, d), generator=g,
+                          dtype=torch.int8).to(cuda_device)
+    q = (10.0 ** torch.randint(-3, 4, (b, d), generator=g)
+         * torch.randn(b, d, generator=g)).to(cuda_device)
+    sel = torch.randint(0, n_pad, (b, e), generator=g, dtype=torch.int32)
+    sel[0, 0] = -1
+    sel[-1, -1] = n_pad + 7
+    sel = sel.to(cuda_device)
+    before = hop.hop_score_int8.launches
+    got = hop.hop_score_int8(codes, q, sel)
+    assert hop.hop_score_int8.launches == before + 1
+    want = hop.hop_score_int8_plain(codes, q, torch.clamp(sel, max=n_pad - 1))
+    assert got.shape == (b, e * m0)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def test_families_on_the_card_match_the_plain_path(cuda_device):

@@ -10,6 +10,9 @@
    chip_smoke.KERNEL_ENTRIES, the piece of each kernel's mangled name it
    looks for there: each must name a __global__ kernel of its source, so
    that a renamed kernel cannot leave its report "not built in this run".
+3. The int8 hop kernel's byte conversion (csrc/hop.cu, dot8_int8), emulated
+   in numpy with the constants read from the source: every signed byte in
+   every position of its word becomes its exact value in f32.
 """
 
 import importlib.util
@@ -17,6 +20,7 @@ import math
 import pathlib
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -127,3 +131,33 @@ def test_each_ptxas_piece_names_a_kernel_of_its_source(name):
     # it gives them, need a template
     assert targs is None or defn.group(1) is not None, \
         f"{name}: {piece} has template arguments, its kernel none"
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm on uint32 arrays: byte i of the result is byte
+    (s >> 4i) & 7 of the eight bytes of x (0-3) and y (4-7)."""
+    pool = [(x >> (8 * k)) & 0xFF for k in range(4)] + \
+        [(y >> (8 * k)) & 0xFF for k in range(4)]
+    out = np.zeros_like(x)
+    for i in range(4):
+        out |= pool[(s >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+@pytest.mark.parametrize("j", range(4))
+def test_int8_hop_byte_conversion_is_exact(j):
+    code = (REPO / "hnsw_tpu_torch" / "csrc" / "hop.cu").read_text()
+    m = re.search(r"raw\.x \^ (0x[0-9A-F]+)u.*?__byte_perm\(w\[h\], (0x[0-9A-F]+)u, "
+                  r"(0x[0-9A-F]+) \+ j\)\),\s*([0-9.]+)f\)", code, re.S)
+    assert m, "the conversion of dot8_int8 is not where this test reads it"
+    flip, magic, sel = (int(m.group(i), 16) for i in (1, 2, 3))
+    sub = float(m.group(4))
+    rng = np.random.default_rng(j)
+    b = np.arange(-128, 128)
+    word = rng.integers(0, 2 ** 32, b.size, dtype=np.uint64).astype(np.uint32)
+    word = (word & ~np.uint32(0xFF << (8 * j))) | \
+        ((b.astype(np.int8).view(np.uint8).astype(np.uint32)) << (8 * j))
+    bits = _byte_perm(word ^ np.uint32(flip), np.full_like(word, magic),
+                      sel + j)
+    got = bits.astype(np.uint32).view(np.float32) - np.float32(sub)
+    np.testing.assert_array_equal(got, b.astype(np.float32))
