@@ -71,8 +71,8 @@ KERNEL_ENTRIES = {
     "hop_score_int8": ("hop.cu", "15hop_int8_kernelILb0E"),
     "bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb0E"),
     "int8_bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb1E"),
-    "exact_topk_sweep": ("sweep.cu", "12sweep_kernelILb0E"),
-    "int8_sweep_topk": ("sweep.cu", "12sweep_kernelILb1E"),
+    "exact_topk_sweep": ("sweep.cu", "18sweep_wgmma_kernelILb0E"),
+    "int8_sweep_topk": ("sweep.cu", "18sweep_wgmma_kernelILb1E"),
     "int8_packed_topk": ("scan.cu", "18packed_bank_kernel"),
     "mm_only": ("probes.cu", "13colsum_kernelILb0E"),
     "mm_only_nt": ("probes.cu", "13colsum_kernelILb0E"),
@@ -82,13 +82,19 @@ KERNEL_ENTRIES = {
 }
 
 
-def ptxas_fields(name: str) -> dict:
+METRIC_CODES = {"cosine": 0, "euclidean": 1, "dot": 2}
+
+
+def ptxas_fields(name: str, metric: str = None) -> dict:
     """The kernel's registers and spill bytes from this run's ptxas report
-    (the largest over its template instantiations). The wgmma kernels'
-    registers are ptxas's count at 384 threads; setmaxnreg then gives each
-    consumer warpgroup 232."""
+    (the largest over its template instantiations, or, given a metric, of
+    the instantiation of that metric: its second template argument). The
+    wgmma kernels' registers are ptxas's count at 384 threads; setmaxnreg
+    then gives each consumer warpgroup 232."""
     from hnsw_tpu_torch.ops import _cuda
     src, piece = KERNEL_ENTRIES[name]
+    if metric is not None:
+        piece += f"Li{METRIC_CODES[metric]}E"
     found = [v for k, v in _cuda.kernel_resources(
         _cuda.BUILD_LOG.get(src, "")).items() if piece in k]
     if not found:
@@ -390,7 +396,8 @@ def check_sweep_kernels(torch, data, records):
             fields = dict(name=name, metric=metric,
                           shape=f"B={b},N_pad={n_pad},D={d},k={k}",
                           max_abs_err=err, tol=tol, row_agreement=agree,
-                          row_agreement_bar=0.999, **ptxas_fields(name))
+                          row_agreement_bar=0.999,
+                          **ptxas_fields(name, metric))
             if metric == "cosine":
                 ms = time_ms(kern)
                 plain_ms = time_ms(plain, reps=3, warmup=1)
@@ -864,22 +871,25 @@ def probe_path(torch, data, records, floor_ms):
             ms=floor_ms[label], us_per_chunk_per_sm=chunk_us(
                 floor_ms[label], q.shape[0], rows, row_bytes, sms))
     for name, rows, row_bytes in (("bucket_topk", 31744, DIM * 2),
-                                  ("int8_bucket_topk", 32768, DIM)):
+                                  ("exact_topk_sweep", 31744, DIM * 2),
+                                  ("int8_bucket_topk", 32768, DIM),
+                                  ("int8_sweep_topk", 32768, DIM)):
         say("probe", stage="chunk", what=f"{name} B=4096", loop="wgmma.cuh",
             ms=records[name]["ms"], us_per_chunk_per_sm=chunk_us(
                 records[name]["ms"], 4096, rows, row_bytes, sms))
     # Each scan kernel against the floor of its type, which runs the wgmma
     # mainloop (csrc/wgmma.cuh) with no epilogue at the same B and corpus:
-    # for the two bucket banks, which run that loop too, the difference is
-    # the bank; for a kernel on the mma.sync loop of tile.cuh, its loop and
-    # its epilogue beside the new loop.
+    # for the two bucket banks and the two sweeps, which run that loop too,
+    # the difference is the bank or the running top-k; for the packed kernel,
+    # on the mma.sync loop of tile.cuh, its loop and its epilogue beside the
+    # new loop.
     floors = {"bf16": ("mm_only B=4096 N=31744", "mm_only_b4096_n31744"),
               "int8": ("matmul_only nt=2048", "matmul_only_b4096_nt2048")}
     for name, kind, loop in (
             ("bucket_topk", "bf16", "wgmma.cuh"),
-            ("exact_topk_sweep", "bf16", "tile.cuh"),
+            ("exact_topk_sweep", "bf16", "wgmma.cuh"),
             ("int8_bucket_topk", "int8", "wgmma.cuh"),
-            ("int8_sweep_topk", "int8", "tile.cuh"),
+            ("int8_sweep_topk", "int8", "wgmma.cuh"),
             ("int8_packed_topk", "int8", "tile.cuh")):
         ms = records[name]["ms"]
         floor_name, label = floors[kind]

@@ -2,8 +2,8 @@
 // the Hopper mainloop of wgmma.cuh (TMA ring, wgmma, resident query block),
 // the loop of the bf16 bucket bank. Each is "the new loop without selection",
 // so a scan kernel's time minus its floor's is what its epilogue costs, or,
-// for a kernel still on the mma.sync loop of tile.cuh, what that loop and its
-// epilogue cost beside the new loop.
+// for the packed kernel, still on the mma.sync loop of tile.cuh, what that
+// loop and its epilogue cost beside the new loop.
 //
 // Replaces the TPU probe kernels
 //   scripts/_probe_r4e.py::mm_only (mm_kernel)              -> colsum, NT

@@ -1,4 +1,7 @@
 // Fused flat scans with bucketed best-two selection (bf16, int8, packed int8).
+// The bf16 and int8 banks run the Hopper mainloop of wgmma.cuh, the packed
+// kernel the mma.sync loop of tile.cuh (its only user; the sweeps of
+// sweep.cu run wgmma.cuh too).
 //
 // Replaces the TPU kernels hnsw_tpu/ops/pallas_scan.py::pallas_bucket_topk
 // (_make_kernel_bucketed), ::pallas_int8_bucket_topk

@@ -1,6 +1,6 @@
-// The 64 x 128 product-tile loop of the flat-scan kernels: the sweep kernels
-// (sweep.cu) and the packed kernel (scan.cu) call it. The bucket banks and
-// the matmul floors run the Hopper mainloop of wgmma.cuh instead.
+// The 64 x 128 product-tile loop of the packed int8 kernel (scan.cu,
+// packed_bank_kernel), its only caller. The bucket banks, the sweeps and the
+// matmul floors run the Hopper mainloop of wgmma.cuh instead.
 //
 // A block of 256 threads owns 64 queries and walks a range of 128-row corpus
 // tiles. Eight warps compute each 64 x 128 product tile with mma.sync

@@ -4,10 +4,13 @@
 // registers in place.
 //
 // Used by csrc/scan.cu (bucket_bank_wgmma_kernel, the bf16 and int8 bucket
-// banks) and by every matmul floor of csrc/probes.cu (last_tile_kernel:
-// matmul_only and matmul_min; colsum_kernel: mm_only, mm_only_nt and, with an
-// MN-major corpus operand, mm_only_kmajor). It replaces, for those, the
-// mma.sync loop of csrc/tile.cuh, which the sweep and packed kernels keep:
+// banks), by csrc/sweep.cu (sweep_wgmma_kernel, the bf16 and int8 sweeps: the
+// ring, the producer and the wgmma of this file, with a consumer loop of its
+// own in which the two consumers take whole tiles in turn) and by every
+// matmul floor of csrc/probes.cu (last_tile_kernel: matmul_only and
+// matmul_min; colsum_kernel: mm_only, mm_only_nt and, with an MN-major corpus
+// operand, mm_only_kmajor). It replaces, for those, the mma.sync loop of
+// csrc/tile.cuh, which the packed kernel keeps:
 // 8 warps of mma.sync fed through registers, one 128-byte K
 // chunk staged between two __syncthreads, the query block staged again for
 // every corpus tile, and each finished 64 x 128 product tile written to
@@ -54,10 +57,11 @@
 //   wgmma read B MN-major (imm-trans-b = 1; see desc_sw128).
 // Shared memory: the query block (row_bytes * 64: 96 KB bf16 or 48 KB s8 at
 // D = 768) plus stages * 16 KB of ring, at most 8 stages and at least 3, plus
-// barriers, within the 227 KB a block may take (D = 768: 8 stages, 225 KB
-// bf16, 177 KB s8). A query block that leaves no room for 3 stages
-// (row_bytes > 2,816) is instead streamed through the ring beside each corpus
-// chunk (8 KB more per stage). Above 48 KB the launch needs
+// barriers, plus the `extra` bytes a kernel asks plan() for, placed after the
+// barriers (the sweeps: 1 KB), within the 227 KB a block may take (D = 768: 8
+// stages, 225 KB bf16, 177 KB s8; the sweeps keep 8). A query block that
+// leaves no room for 3 stages (row_bytes > 2,816) is instead streamed through
+// the ring beside each corpus chunk (8 KB more per stage). Above 48 KB the launch needs
 // cudaFuncSetAttribute(..., cudaFuncAttributeMaxDynamicSharedMemorySize,
 // ...), which the C entries call. The tensor maps are encoded on the host
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so no
@@ -97,16 +101,16 @@ struct Plan {
     int smem;       // dynamic shared memory bytes, with 1 KB for the alignment
 };
 
-inline Plan plan(int row_bytes) {
+inline Plan plan(int row_bytes, int extra = 0) {
     const int nk = row_bytes / KB;
-    const int avail = kSmemMax - 1024 - kBarBytes;
+    const int avail = kSmemMax - 1024 - kBarBytes - extra;
     Plan p;
     p.q_resident = nk * kQChunk + kMinStages * kVChunk <= avail;
     const int q_bytes = p.q_resident ? nk * kQChunk : 0;
     const int stage_bytes = kVChunk + (p.q_resident ? 0 : kQChunk);
     p.stages = (avail - q_bytes) / stage_bytes;
     if (p.stages > kMaxStages) p.stages = kMaxStages;
-    p.smem = 1024 + q_bytes + p.stages * stage_bytes + kBarBytes;
+    p.smem = 1024 + q_bytes + p.stages * stage_bytes + kBarBytes + extra;
     return p;
 }
 
@@ -286,7 +290,10 @@ struct Ring {
 };
 
 // All threads: carve the dynamic shared memory and initialise the barriers.
-__device__ __forceinline__ Ring setup(uint8_t* smem_raw, int nk, int stages, int q_resident) {
+// empty_count: the warp arrivals that free a stage (every consumer warp by
+// default; a kernel whose chunks each have one consumer passes 4).
+__device__ __forceinline__ Ring setup(uint8_t* smem_raw, int nk, int stages, int q_resident,
+                                      int empty_count = kConsumers * 4) {
     Ring r;
     r.base = (smem_u32(smem_raw) + 1023u) & ~1023u;
     r.v_base = r.base + (q_resident ? nk : stages) * kQChunk;
@@ -299,7 +306,7 @@ __device__ __forceinline__ Ring setup(uint8_t* smem_raw, int nk, int stages, int
     if (threadIdx.x == 0) {
         for (int s = 0; s < stages; ++s) {
             mbar_init(r.full + 8 * s, 1);
-            mbar_init(r.empty + 8 * s, kConsumers * 4);
+            mbar_init(r.empty + 8 * s, empty_count);
         }
         mbar_init(r.qbar, 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into a shared library under
 ``hnsw_tpu_torch/_build/``, at first use. The sources and the shared headers
-(``csrc/*.cuh``: the ``mma.sync`` tile loop ``tile.cuh`` and the Hopper
-mainloop ``wgmma.cuh``) are hashed, so an edit rebuilds and an unchanged tree
+(``csrc/*.cuh``: the ``mma.sync`` tile loop ``tile.cuh`` of the packed
+kernel and the Hopper mainloop ``wgmma.cuh`` of the banks, the sweeps and the
+floors) are hashed, so an edit rebuilds and an unchanged tree
 reuses the library. ``wgmma.cuh`` needs no extra flag: ``sm_90a`` enables
 ``wgmma`` and ``setmaxnreg``, and the TMA tensor maps are encoded through
 ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``. All sources are compiled
@@ -66,7 +67,7 @@ SIGNATURES = {
         # v8, v_sq, vscale, q8, qmeta, part_d, part_r, B, N_pad, D, n, k,
         # metric, splits, stream
         "sweep_topk_int8": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
-        # part_d, part_r, out_d, out_r, B, k, splits, stream
+        # part_d, part_r, out_d, out_r, B, k, lists, stream
         "sweep_merge": (P, P, P, P, I, I, I, P),
     },
     "probes.cu": {

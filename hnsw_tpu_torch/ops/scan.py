@@ -326,9 +326,27 @@ def split_plan(qblocks: int, ntiles: int, sms: int) -> int:
     return max(best, -(-ntiles // MAX_SPLIT_TILES))
 
 
+# partial lists a query may have in the sweep kernels' merge (csrc/sweep.cu,
+# kMaxLists)
+SWEEP_MAX_LISTS = 32
+
+
+def sweep_plan(qblocks: int, ntiles: int, sms: int) -> tuple:
+    """(corpus splits, partial lists per query) of the sweep kernels:
+    split_plan's splits, at most SWEEP_MAX_LISTS // 2 (a sweep keeps whole
+    row numbers, so the banks' tile cap does not bind it), and two lists a
+    split, since each of a block's two consumer warpgroups keeps its own
+    lists over the tiles it takes (every other tile of the split)."""
+    splits = min(split_plan(qblocks, ntiles, sms), SWEEP_MAX_LISTS // 2)
+    return splits, 2 * splits
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _splits(qblocks: int, ntiles: int, device) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return split_plan(qblocks, ntiles, sms)
+    return split_plan(qblocks, ntiles, _sms(device))
 
 
 def _check_tensors(dev, tensors, f32):
@@ -421,9 +439,9 @@ def _launch_sweep(int8: bool, vectors, v_sq, queries, n, k: int, metric,
         _cuda.require(vscale.shape == (n_pad,) and qmeta.shape == (b, 2),
                       "vscale must be [N_pad] and qmeta [B, 2]")
     _cuda.require(supported(k), "the sweep kernels take 1 <= k <= 32")
-    splits = _splits(-(-b // 64), n_pad // KPAD, dev)
-    part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
-    part_r = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
+    splits, lists = sweep_plan(-(-b // 64), n_pad // KPAD, _sms(dev))
+    part_d = torch.empty((lists, b, k), dtype=torch.float32, device=dev)
+    part_r = torch.empty((lists, b, k), dtype=torch.int32, device=dev)
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     lib = _cuda.library("sweep.cu")
@@ -443,7 +461,7 @@ def _launch_sweep(int8: bool, vectors, v_sq, queries, n, k: int, metric,
         name, counter = "exact_topk_sweep", exact_topk_sweep
     _cuda.check(code, name)
     code = lib.sweep_merge(part_d.data_ptr(), part_r.data_ptr(),
-                           out_d.data_ptr(), out_r.data_ptr(), b, k, splits,
+                           out_d.data_ptr(), out_r.data_ptr(), b, k, lists,
                            stream)
     _cuda.check(code, "sweep_merge")
     counter.launches += 1

@@ -6,9 +6,10 @@ matmul floors: the two int8 floors (matmul_only, matmul_min) at nt = 2048,
 and the bf16 ones, mm_only at B = 4096 over the 31,744-row pack and
 mm_only, its NT twin and mm_only_kmajor at B = 1024 over 32,768 rows; then
 the two hop kernels at one hop of B = 1024, E = 4, M0 = 32, D = 768. Both
-bucket banks and every floor run the Hopper mainloop of csrc/wgmma.cuh;
-exact_topk_sweep, int8_sweep_topk and int8_packed_topk run the mma.sync
-loop of csrc/tile.cuh; the hop kernels their own gather loops (csrc/hop.cu).
+bucket banks, both sweeps (exact_topk_sweep, int8_sweep_topk) and every
+floor run the Hopper mainloop of csrc/wgmma.cuh; int8_packed_topk runs the
+mma.sync loop of csrc/tile.cuh; the hop kernels their own gather loops
+(csrc/hop.cu).
 Prints the median of 30 CUDA-event timings of each call (the host work
 before its launch included), then, on a second line, each kernel's time
 in a run of 20 calls back to back (its device time, where that is longer

@@ -146,10 +146,16 @@ def _int8_inputs(v, q, vsq):
 
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
 def test_sweep_kernels_match_plain_versions(metric, cuda_device):
+    """Besides the first three shapes: B = 1 over 16 corpus splits (32
+    partial lists) with n not a multiple of 128 and k = 1; rows of 3,072
+    bytes, whose bf16 query block the kernel streams through its ring, at
+    k = 32; then exact ties (below)."""
     g = torch.Generator(device="cpu").manual_seed(2)
     for b, n_pad, d, n, k in ((70, 1024, 256, 1000, 10),
                               (300, 4096, 768, 4000, 32),
-                              (8, 128, 128, 5, 10)):
+                              (8, 128, 128, 5, 10),
+                              (1, 20480, 256, 20000, 1),
+                              (70, 1024, 1536, 1000, 32)):
         v = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g),
                                           dim=1)
         q = v[torch.randint(0, n, (b,), generator=g)] + 0.01
@@ -176,6 +182,38 @@ def test_sweep_kernels_match_plain_versions(metric, cuda_device):
                                             nt=128)
         np.testing.assert_allclose(kd.cpu(), pd.cpu(), rtol=1e-6, atol=1e-6)
         assert (kr == pr).float().mean() >= 0.99
+
+    # Exact ties: five distinct vectors repeated in a fixed pattern, so each
+    # query's list is made of copies of one vector, spread over both
+    # consumers' 64-column halves of every tile and over 16 corpus splits;
+    # the tie rule (the lower row) alone picks the rows, which must be the
+    # plain version's. n is not a multiple of 128.
+    b, n_pad, d, n = 70, 4096, 256, 4000
+    base = torch.nn.functional.normalize(torch.randn(5, d, generator=g), dim=1)
+    pattern = (torch.arange(n_pad) * 7 + torch.arange(n_pad) // 300) % 5
+    v = base[pattern]
+    q = (base[torch.randint(0, 5, (b,), generator=g)]
+         + 0.02 * torch.randn(b, d, generator=g))
+    vsq = (v * v).sum(1)
+    assert scan.sweep_plan(-(-b // 64), n_pad // 128,
+                           scan._sms(cuda_device)) == (16, 32)
+    for k in (1, 10, 32):
+        args = [t.to(cuda_device) for t in (v.to(torch.bfloat16), vsq,
+                                            q.to(torch.bfloat16))]
+        kd, kr = scan.exact_topk_sweep(*args, n, k=k, metric=metric, bt=b,
+                                       nt=128)
+        pd, pr = scan.exact_topk_sweep_plain(*args, n, k=k, metric=metric,
+                                             nt=128)
+        assert bool(torch.equal(kr, pr))
+        p = 2 if metric == "euclidean" else 1
+        np.testing.assert_allclose(kd.cpu() ** p, pd.cpu() ** p, atol=KEY_TOL)
+        args = [t.to(cuda_device) for t in _int8_inputs(v, q, vsq)]
+        kd, kr = scan.int8_sweep_topk(*args, n, k=k, metric=metric, bt=b,
+                                      nt=128)
+        pd, pr = scan.int8_sweep_topk_plain(*args, n, k=k, metric=metric,
+                                            nt=128)
+        assert bool(torch.equal(kr, pr))
+        np.testing.assert_allclose(kd.cpu(), pd.cpu(), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("metric", ["cosine", "dot"])
