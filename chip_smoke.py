@@ -73,7 +73,7 @@ KERNEL_ENTRIES = {
     "int8_bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb1E"),
     "exact_topk_sweep": ("sweep.cu", "18sweep_wgmma_kernelILb0E"),
     "int8_sweep_topk": ("sweep.cu", "18sweep_wgmma_kernelILb1E"),
-    "int8_packed_topk": ("scan.cu", "18packed_bank_kernel"),
+    "int8_packed_topk": ("scan.cu", "24packed_bank_wgmma_kernel"),
     "mm_only": ("probes.cu", "13colsum_kernelILb0E"),
     "mm_only_nt": ("probes.cu", "13colsum_kernelILb0E"),
     "mm_only_kmajor": ("probes.cu", "13colsum_kernelILb1E"),
@@ -831,8 +831,7 @@ def probe_path(torch, data, records, floor_ms):
     through the ported harness, and a save / load of each. The floors and
     scan kernels were timed in phase 3; their times are printed here side
     by side, so that a scan kernel's time less its floor is what its
-    epilogue, and for a kernel on an mma.sync loop that loop, cost beside
-    the wgmma mainloop of the floors."""
+    epilogue costs beside the wgmma mainloop of the floors."""
     import tempfile
 
     import hnsw_tpu_torch as ht
@@ -873,16 +872,15 @@ def probe_path(torch, data, records, floor_ms):
     for name, rows, row_bytes in (("bucket_topk", 31744, DIM * 2),
                                   ("exact_topk_sweep", 31744, DIM * 2),
                                   ("int8_bucket_topk", 32768, DIM),
-                                  ("int8_sweep_topk", 32768, DIM)):
+                                  ("int8_sweep_topk", 32768, DIM),
+                                  ("int8_packed_topk", 32768, DIM)):
         say("probe", stage="chunk", what=f"{name} B=4096", loop="wgmma.cuh",
             ms=records[name]["ms"], us_per_chunk_per_sm=chunk_us(
                 records[name]["ms"], 4096, rows, row_bytes, sms))
     # Each scan kernel against the floor of its type, which runs the wgmma
-    # mainloop (csrc/wgmma.cuh) with no epilogue at the same B and corpus:
-    # for the two bucket banks and the two sweeps, which run that loop too,
-    # the difference is the bank or the running top-k; for the packed kernel,
-    # on the mma.sync loop of tile.cuh, its loop and its epilogue beside the
-    # new loop.
+    # mainloop (csrc/wgmma.cuh) with no epilogue at the same B and corpus;
+    # every scan kernel runs that loop too, so the difference is its bank or
+    # its running top-k.
     floors = {"bf16": ("mm_only B=4096 N=31744", "mm_only_b4096_n31744"),
               "int8": ("matmul_only nt=2048", "matmul_only_b4096_nt2048")}
     for name, kind, loop in (
@@ -890,7 +888,7 @@ def probe_path(torch, data, records, floor_ms):
             ("exact_topk_sweep", "bf16", "wgmma.cuh"),
             ("int8_bucket_topk", "int8", "wgmma.cuh"),
             ("int8_sweep_topk", "int8", "wgmma.cuh"),
-            ("int8_packed_topk", "int8", "tile.cuh")):
+            ("int8_packed_topk", "int8", "wgmma.cuh")):
         ms = records[name]["ms"]
         floor_name, label = floors[kind]
         say("probe", stage="floor_gap", kernel=f"{name} B=4096", loop=loop,

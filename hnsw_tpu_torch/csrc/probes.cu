@@ -1,9 +1,7 @@
 // Matmul floors: a scan's product loop with the probes' trivial epilogues, on
 // the Hopper mainloop of wgmma.cuh (TMA ring, wgmma, resident query block),
 // the loop of the bf16 bucket bank. Each is "the new loop without selection",
-// so a scan kernel's time minus its floor's is what its epilogue costs, or,
-// for the packed kernel, still on the mma.sync loop of tile.cuh, what that
-// loop and its epilogue cost beside the new loop.
+// so a scan kernel's time minus its floor's is what its epilogue costs.
 //
 // Replaces the TPU probe kernels
 //   scripts/_probe_r4e.py::mm_only (mm_kernel)              -> colsum, NT

@@ -1,7 +1,6 @@
 // Fused flat scans with bucketed best-two selection (bf16, int8, packed int8).
-// The bf16 and int8 banks run the Hopper mainloop of wgmma.cuh, the packed
-// kernel the mma.sync loop of tile.cuh (its only user; the sweeps of
-// sweep.cu run wgmma.cuh too).
+// All three run the Hopper mainloop of wgmma.cuh (TMA ring, wgmma, resident
+// query block), as do the sweeps of sweep.cu and the floors of probes.cu.
 //
 // Replaces the TPU kernels hnsw_tpu/ops/pallas_scan.py::pallas_bucket_topk
 // (_make_kernel_bucketed), ::pallas_int8_bucket_topk
@@ -38,10 +37,11 @@
 // there.
 //
 // The bucket banks (bucket_bank_wgmma_kernel<INT8, METRIC>, one template for
-// bf16 and int8) run the mainloop of wgmma.cuh. Their mma.sync predecessor
-// (on the H100 at B = 4096: bf16 6.672 ms over the 31,744-row pack, int8
-// 2.710 ms over 32,768 rows, against tensor-core bounds of 0.199 and 0.099
-// ms) spent most of its time in the epilogue: 4 registers per pair (255
+// bf16 and int8) run the mainloop of wgmma.cuh. Their predecessor, a loop of
+// warp-level MMA fed through registers (on the H100 at B = 4096: bf16 6.672
+// ms over the 31,744-row pack, int8 2.710 ms over 32,768 rows, against
+// tensor-core bounds of 0.199 and 0.099 ms), spent most of its time in the
+// epilogue: 4 registers per pair (255
 // registers, 900 spill bytes in int8), each product read back from a
 // shared-memory copy of the tile, a run-time metric branch per element, and
 // one block per SM with nothing to hide the epilogue behind. Now two consumer
@@ -65,25 +65,36 @@
 // behind (6 chunks a tile at D = 768, not 12) and converts each s32 dot to
 // f32 at a quarter of the FMA rate.
 //
-// The packed kernel keeps, per (query, bucket), the two smallest packed int32
-// keys over the nt/128 sub-tiles of each nt-row tile: they are unique within
-// the tile, so that part is order-free. At each nt-row tile boundary it
-// decodes them (key bits with the group bits cleared, row from the group)
-// and folds them into the split's bank, which lives in the partial-bank
-// buffer, with _merge_pair2 in tile order, as the reference does per grid
-// step. Splits are aligned to nt-row tiles. Its keys are one exact int32 dot,
-// one __fmul_rn and one __fadd_rn, bit for bit those of the plain version.
+// The packed kernel (packed_bank_wgmma_kernel) runs the same loop, with the
+// same consumer layout: per (query, bucket) it keeps the two smallest packed
+// int32 keys over the nt/128 sub-tiles of each nt-row tile, 2 registers a
+// pair. They are unique within the tile, so that part is order-free and the
+// insert is branch-free: p2 = min(p2, max(p1, p)), p1 = min(p1, p). The
+// nvkey values of the thread's 16 columns are loaded half a tile early, as
+// the int8 bank's vkey. At each nt-row tile boundary (a branch uniform over
+// the tile, outside the per-element loop) it folds them with _merge_pair2,
+// in tile order, into the split's bank, comparing the keys with the group
+// bits cleared as the reference's decode does. That bank cannot stay in
+// registers (3 more a pair would spill) and lives in shared memory beside
+// the ring: 12 bytes a pair, the two packed keys with their group bits and
+// the two nt-row tiles within the split as 16-bit halves, 96 KB a block, so
+// the int8 ring keeps 5 stages at D = 768. Each (query, bucket) has one
+// owning thread, so the bank needs no synchronisation; it is decoded and
+// written once at the end of the split. Folding into the partial-bank buffer
+// in global memory instead (each fold a read-modify-write of 128 KB a block
+// through L2, all blocks at once) cost 0.08 ms of 0.36 on the H100 (PERF.md).
+// Splits are aligned to nt-row tiles. Its keys are one exact int32 dot, one
+// __fmul_rn and one __fadd_rn, bit for bit those of the plain version.
 
 #include <type_traits>
 
-#include "tile.cuh"
 #include "wgmma.cuh"
-
-using namespace tile;
 
 namespace {
 
-constexpr int kPairs = BM * BN / kThreads;   // (query, bucket) pairs per thread
+constexpr int BN = wg::BN;
+constexpr float BIG = 1e30f;
+enum { COSINE = 0, EUCLIDEAN = 1, DOT = 2 };
 constexpr int INVALID_PACKED = 0x7F000000;   // sorts after every biased key
 constexpr float PACK_BIAS = 16384.f;
 
@@ -101,80 +112,6 @@ __device__ __forceinline__ void merge2(float& a1, int& ai1, float& a2, int& ai2,
     a1 = n1; ai1 = ni1;
     a2 = mid <= o2 ? mid : o2;
     ai2 = mid <= o2 ? mi : oi2;
-}
-
-__device__ __forceinline__ void decode_packed(int p, int gmask, int tile_row0, int c, float& key,
-                                              int& row) {
-    const bool ok = p < INVALID_PACKED;
-    key = ok ? __int_as_float(p & ~gmask) : BIG;
-    row = ok ? tile_row0 + (p & gmask) * BN + c : -1;
-}
-
-// group = nt / 128 sub-tiles per nt-row tile; gbits = bits of the group id.
-__global__ void __launch_bounds__(kThreads, 1)
-packed_bank_kernel(const uint8_t* __restrict__ v8, const float* __restrict__ nvkey,
-                   const uint8_t* __restrict__ q8, float* __restrict__ part_d,
-                   int* __restrict__ part_r, int B, int N_pad, int D, int n, int group,
-                   int gbits, int splits) {
-    __shared__ __align__(16) uint8_t smem[kSmem];
-    const int tid = threadIdx.x;
-    const int q0 = blockIdx.x * BM;
-    const int split = blockIdx.y;
-    const int units = N_pad / (BN * group);
-    const int u_begin = (int)((long long)split * units / splits);
-    const int u_end = (int)((long long)(split + 1) * units / splits);
-    const int gmask = (1 << gbits) - 1;
-
-    const int c = tid & (BN - 1), qh = tid >> 7;
-    int p1[kPairs], p2[kPairs];
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) { p1[i] = INVALID_PACKED; p2[i] = INVALID_PACKED; }
-
-    product_tiles<true>(v8, q8, B, D, q0, u_begin * group, u_end * group, smem,
-                        [&](int tile, const float* Cs) {
-        const int gi = tile % group;
-        const int row = tile * BN + c;
-        const float nk = nvkey[row];
-        const bool live = row < n;
-#pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-            const float dot = Cs[(qh + 2 * i) * LDC + c];
-            const float key = __fadd_rn(__fmul_rn(dot, nk), PACK_BIAS);
-            const int p = live ? ((__float_as_int(key) & ~gmask) | gi) : INVALID_PACKED;
-            if (p < p1[i]) {
-                p2[i] = p1[i]; p1[i] = p;
-            } else if (p < p2[i]) {
-                p2[i] = p;
-            }
-        }
-        if (gi != group - 1) return;
-        // an nt-row tile is complete: fold its best two into the split's bank
-        const int tile_row0 = (tile - gi) * BN;
-        const bool first = tile - gi == u_begin * group;
-#pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-            const int q = q0 + qh + 2 * i;
-            float b1, b2;
-            int bi1, bi2;
-            decode_packed(p1[i], gmask, tile_row0, c, b1, bi1);
-            decode_packed(p2[i], gmask, tile_row0, c, b2, bi2);
-            p1[i] = INVALID_PACKED;
-            p2[i] = INVALID_PACKED;
-            if (q >= B) continue;
-            const long long base = ((long long)split * B + q) * (2 * BN);
-            float a1 = BIG, a2 = BIG;
-            int ai1 = -1, ai2 = -1;
-            if (!first) {
-                a1 = part_d[base + c]; a2 = part_d[base + BN + c];
-                ai1 = part_r[base + c]; ai2 = part_r[base + BN + c];
-            }
-            merge2(a1, ai1, a2, ai2, b1, bi1, b2, bi2);
-            part_d[base + c] = a1;
-            part_d[base + BN + c] = a2;
-            part_r[base + c] = ai1;
-            part_r[base + BN + c] = ai2;
-        }
-    });
 }
 
 // The reference's _merge_pair2 for one incoming candidate (x, tile index ti)
@@ -334,6 +271,175 @@ int launch_bank(const void* vectors, const void* vkey, const void* vscale, const
     return (int)cudaGetLastError();
 }
 
+// A packed key's ordering key: the key bits with the group bits cleared, or
+// BIG for a row >= n.
+__device__ __forceinline__ float packed_key(int p, int gmask) {
+    return p < INVALID_PACKED ? __int_as_float(p & ~gmask) : BIG;
+}
+
+// one array of the packed kernel's bank: a word per consumer thread and pair
+constexpr int kConsumerThreads = wg::kConsumers * 128;
+constexpr int kBankWords = wg::kAcc * kConsumerThreads;
+
+// The packed int8 bank on the Hopper mainloop of wgmma.cuh. group = nt / 128
+// sub-tiles per nt-row tile; gbits = bits of the group id. Consumer thread
+// state: 32 (query, bucket) pairs of two packed int32 minima over the
+// current nt-row tile, in the accumulator layout; 32 accumulators per set,
+// two sets; the 16 nvkey values of the thread's columns of the next tile to
+// finish. The split's bank is in shared memory after the ring's barriers,
+// three arrays of [pair i][consumer thread] words (a warp reads 32
+// consecutive words: no bank conflict): the best and second packed keys,
+// group bits kept, and their nt-row tiles within the split as two 16-bit
+// halves (best low). A slot's row is (t_begin + tile * group + group bits)
+// * 128 + its column; a key >= INVALID_PACKED is (BIG, -1). Each thread
+// reads and writes only its own slots.
+__global__ void __launch_bounds__(wg::kThreads, 1)
+packed_bank_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                         __grid_constant__ const CUtensorMap vmap, const float* __restrict__ nvkey,
+                         float* __restrict__ part_d, int* __restrict__ part_r, int B, int N_pad,
+                         int n, int nk, int stages, int q_resident, int group, int gbits,
+                         int splits) {
+    extern __shared__ uint8_t smem_raw[];
+    const wg::Ring ring = wg::setup(smem_raw, nk, stages, q_resident);
+    const int q0 = blockIdx.x * wg::BM, split = blockIdx.y;
+    const int units = N_pad / (BN * group);
+    const int t_begin = (int)((long long)split * units / splits) * group;
+    const int t_end = (int)((long long)(split + 1) * units / splits) * group;
+    const int gmask = (1 << gbits) - 1;
+
+    if (threadIdx.x < 128) {
+        wg::producer_regs();
+        if (threadIdx.x == 0) wg::produce(ring, &qmap, &vmap, q0, t_begin, t_end, wg::KB);
+    } else {
+        wg::consumer_regs();
+        const wg::Frag f = wg::frag();
+        // volatile keeps ptxas from hoisting a fold's 96 loads ahead of their
+        // use, which spilled in the epilogue (PERF.md)
+        volatile int* const bank1 = reinterpret_cast<volatile int*>(
+            smem_raw + (ring.qbar + 8 - wg::smem_u32(smem_raw))) + (threadIdx.x - 128);
+        volatile int* const bank2 = bank1 + kBankWords;
+        volatile uint32_t* const bank_t =
+            reinterpret_cast<volatile uint32_t*>(bank2 + kBankWords);
+        int p1[wg::kAcc], p2[wg::kAcc];
+#pragma unroll
+        for (int i = 0; i < wg::kAcc; ++i) {
+            p1[i] = INVALID_PACKED;
+            p2[i] = INVALID_PACKED;
+            bank1[i * kConsumerThreads] = INVALID_PACKED;
+            bank2[i * kConsumerThreads] = INVALID_PACKED;
+            bank_t[i * kConsumerThreads] = 0;
+        }
+        float2 vk[wg::WN / 8];
+        uint32_t u = 0;   // the nt-row tile within the split
+
+        // an nt-row tile is complete: fold its best two (b, tile u) into the
+        // split's bank (a) with _merge_pair2, and start the next
+        auto fold = [&]() {
+#pragma unroll
+            for (int i = 0; i < wg::kAcc; ++i) {
+                const int a1 = bank1[i * kConsumerThreads], a2 = bank2[i * kConsumerThreads];
+                const uint32_t at = bank_t[i * kConsumerThreads];
+                const float ka1 = packed_key(a1, gmask), ka2 = packed_key(a2, gmask);
+                const float kb1 = packed_key(p1[i], gmask), kb2 = packed_key(p2[i], gmask);
+                const bool a_first = ka1 <= kb1;
+                const int mid = a_first ? p1[i] : a1;
+                const float kmid = a_first ? kb1 : ka1;
+                const uint32_t tmid = a_first ? u : at & 0xFFFFu;
+                const bool a2_first = ka2 <= kb2;
+                const int o2 = a2_first ? a2 : p2[i];
+                const uint32_t to2 = a2_first ? at >> 16 : u;
+                const bool mid_first = kmid <= (a2_first ? ka2 : kb2);
+                bank1[i * kConsumerThreads] = a_first ? a1 : p1[i];
+                bank2[i * kConsumerThreads] = mid_first ? mid : o2;
+                bank_t[i * kConsumerThreads] = (a_first ? at & 0xFFFFu : u) | (mid_first ? tmid : to2) << 16;
+                p1[i] = INVALID_PACKED;
+                p2[i] = INVALID_PACKED;
+            }
+            ++u;
+        };
+
+        wg::consume<int>(ring, t_begin, t_end,
+                         [&](int tile) {
+#pragma unroll
+            for (int j = 0; j < wg::WN / 8; ++j)
+                vk[j] = __ldg(reinterpret_cast<const float2*>(nvkey + tile * BN + f.col0 + 8 * j));
+        },
+                         [&](auto& acc, int tile) {
+            const int gi = tile % group;
+            const int lim = n - tile * BN - f.col0;   // column offsets below lim are live
+#pragma unroll
+            for (int j = 0; j < wg::WN / 8; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int i = 4 * j + 2 * h + e;
+                        // an s32 dot converts exactly below 2^24 (D <= 1040)
+                        const float dot = static_cast<float>(acc[i]);
+                        const float key = __fadd_rn(__fmul_rn(dot, pick(vk[j], e)), PACK_BIAS);
+                        const int p = 8 * j + e < lim ? (__float_as_int(key) & ~gmask) | gi
+                                                      : INVALID_PACKED;
+                        // keys are unique within an nt-row tile: no tie rule
+                        p2[i] = min(p2[i], max(p1[i], p));
+                        p1[i] = min(p1[i], p);
+                    }
+            if (gi == group - 1) fold();
+        });
+
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int q = q0 + f.row0 + 8 * h;
+            if (q >= B) continue;
+            const long long base = ((long long)split * B + q) * (2 * BN);
+#pragma unroll
+            for (int j = 0; j < wg::WN / 8; ++j) {
+                const int c = f.col0 + 8 * j, i = 4 * j + 2 * h;
+                float d1[2], d2[2];
+                int r1[2], r2[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int s = (i + e) * kConsumerThreads;
+                    const int k1 = bank1[s], k2 = bank2[s];
+                    const uint32_t at = bank_t[s];
+                    d1[e] = packed_key(k1, gmask);
+                    d2[e] = packed_key(k2, gmask);
+                    r1[e] = k1 < INVALID_PACKED
+                        ? (t_begin + (int)(at & 0xFFFFu) * group + (k1 & gmask)) * BN + c + e
+                        : -1;
+                    r2[e] = k2 < INVALID_PACKED
+                        ? (t_begin + (int)(at >> 16) * group + (k2 & gmask)) * BN + c + e
+                        : -1;
+                }
+                *reinterpret_cast<float2*>(part_d + base + c) = make_float2(d1[0], d1[1]);
+                *reinterpret_cast<float2*>(part_d + base + BN + c) = make_float2(d2[0], d2[1]);
+                *reinterpret_cast<int2*>(part_r + base + c) = make_int2(r1[0], r1[1]);
+                *reinterpret_cast<int2*>(part_r + base + BN + c) = make_int2(r2[0], r2[1]);
+            }
+        }
+    }
+}
+
+int launch_packed(const void* v8, const void* nvkey, const void* q8, void* part_d, void* part_r,
+                  int B, int N_pad, int D, int n, int group, int gbits, int splits,
+                  cudaStream_t stream) {
+    // a slot keeps its nt-row tile within the split in 16 bits
+    const int units = N_pad / (BN * group);
+    if ((units + splits - 1) / splits > 0x10000) return (int)cudaErrorInvalidValue;
+    const wg::Plan p = wg::plan(D, 3 * kBankWords * 4);
+    CUtensorMap qmap, vmap;
+    int err = wg::encode_rows(&qmap, q8, D, B, wg::BM, true);
+    if (err == 0) err = wg::encode_rows(&vmap, v8, D, N_pad, wg::BN, true);
+    if (err != 0) return err;
+    err = (int)cudaFuncSetAttribute(packed_bank_wgmma_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != 0) return err;
+    const dim3 grid((B + wg::BM - 1) / wg::BM, splits);
+    packed_bank_wgmma_kernel<<<grid, wg::kThreads, p.smem, stream>>>(
+        qmap, vmap, (const float*)nvkey, (float*)part_d, (int*)part_r, B, N_pad, n, D / wg::KB,
+        p.stages, p.q_resident, group, gbits, splits);
+    return (int)cudaGetLastError();
+}
+
 __global__ void bucket_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_r,
                                     float* __restrict__ out_d, int* __restrict__ out_r, int B,
                                     int splits) {
@@ -378,12 +484,9 @@ extern "C" int bucket_bank_int8(const void* v8, const void* vkey, const void* vs
 extern "C" int packed_bank_int8(const void* v8, const void* nvkey, const void* q8, void* part_d,
                                 void* part_r, int B, int N_pad, int D, int n, int group,
                                 int gbits, int splits, void* stream) {
-    if (B > 0 && splits > 0) {
-        const dim3 grid((B + BM - 1) / BM, splits);
-        packed_bank_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)v8, (const float*)nvkey, (const uint8_t*)q8, (float*)part_d,
-            (int*)part_r, B, N_pad, D, n, group, gbits, splits);
-    }
+    if (B > 0 && splits > 0)
+        return launch_packed(v8, nvkey, q8, part_d, part_r, B, N_pad, D, n, group, gbits, splits,
+                             (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

@@ -4,14 +4,14 @@
 // registers in place.
 //
 // Used by csrc/scan.cu (bucket_bank_wgmma_kernel, the bf16 and int8 bucket
-// banks), by csrc/sweep.cu (sweep_wgmma_kernel, the bf16 and int8 sweeps: the
-// ring, the producer and the wgmma of this file, with a consumer loop of its
-// own in which the two consumers take whole tiles in turn) and by every
+// banks, and packed_bank_wgmma_kernel, the packed int8 bank), by
+// csrc/sweep.cu (sweep_wgmma_kernel, the bf16 and int8 sweeps: the ring, the
+// producer and the wgmma of this file, with a consumer loop of its own in
+// which the two consumers take whole tiles in turn) and by every
 // matmul floor of csrc/probes.cu (last_tile_kernel: matmul_only and
 // matmul_min; colsum_kernel: mm_only, mm_only_nt and, with an MN-major corpus
-// operand, mm_only_kmajor). It replaces, for those, the mma.sync loop of
-// csrc/tile.cuh, which the packed kernel keeps:
-// 8 warps of mma.sync fed through registers, one 128-byte K
+// operand, mm_only_kmajor). It replaced, for all of them, a loop of
+// warp-level MMA instructions: 8 warps fed through registers, one 128-byte K
 // chunk staged between two __syncthreads, the query block staged again for
 // every corpus tile, and each finished 64 x 128 product tile written to
 // shared memory as f32 for the epilogue. That loop ran at 8-9x its

@@ -3,9 +3,8 @@
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into a shared library under
 ``hnsw_tpu_torch/_build/``, at first use. The sources and the shared headers
-(``csrc/*.cuh``: the ``mma.sync`` tile loop ``tile.cuh`` of the packed
-kernel and the Hopper mainloop ``wgmma.cuh`` of the banks, the sweeps and the
-floors) are hashed, so an edit rebuilds and an unchanged tree
+(``csrc/*.cuh``: the Hopper mainloop ``wgmma.cuh`` of the three banks, the
+sweeps and the floors) are hashed, so an edit rebuilds and an unchanged tree
 reuses the library. ``wgmma.cuh`` needs no extra flag: ``sm_90a`` enables
 ``wgmma`` and ``setmaxnreg``, and the TMA tensor maps are encoded through
 ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``. All sources are compiled

@@ -5,11 +5,11 @@ corpus (cosine), B = 4096, N_pad 31,744 (bf16) and 32,768 (int8), then the
 matmul floors: the two int8 floors (matmul_only, matmul_min) at nt = 2048,
 and the bf16 ones, mm_only at B = 4096 over the 31,744-row pack and
 mm_only, its NT twin and mm_only_kmajor at B = 1024 over 32,768 rows; then
-the two hop kernels at one hop of B = 1024, E = 4, M0 = 32, D = 768. Both
-bucket banks, both sweeps (exact_topk_sweep, int8_sweep_topk) and every
-floor run the Hopper mainloop of csrc/wgmma.cuh; int8_packed_topk runs the
-mma.sync loop of csrc/tile.cuh; the hop kernels their own gather loops
-(csrc/hop.cu).
+the two hop kernels at one hop of B = 1024, E = 4, M0 = 32, D = 768. Every
+scan kernel (the three banks bucket_topk, int8_bucket_topk and
+int8_packed_topk, and both sweeps, exact_topk_sweep and int8_sweep_topk)
+and every floor run the Hopper mainloop of csrc/wgmma.cuh; the hop kernels
+their own gather loops (csrc/hop.cu).
 Prints the median of 30 CUDA-event timings of each call (the host work
 before its launch included), then, on a second line, each kernel's time
 in a run of 20 calls back to back (its device time, where that is longer

@@ -218,16 +218,28 @@ def test_sweep_kernels_match_plain_versions(metric, cuda_device):
 
 @pytest.mark.parametrize("metric", ["cosine", "dot"])
 def test_packed_kernel_matches_plain_version(metric, cuda_device):
+    """Bank keys bit for bit at nt = 128 (group 1, gbits 1), 256, 2048 and
+    4096; B = 1 and B not a multiple of 64; n a multiple of neither 128 nor
+    nt; more than 2 corpus splits (B = 1: one split per nt-row tile, up to
+    16). Then duplicated corpus rows in one bucket, within one nt-row tile
+    (the group bits order them) and across nt-row tiles (the _merge_pair2
+    tie rule), in one split, where rows must be the plain version's."""
     g = torch.Generator(device="cpu").manual_seed(3)
+    sms = scan._sms(cuda_device)
     for b, n_pad, d, n, nt in ((70, 1024, 256, 1000, 256),
                                (300, 8192, 768, 8000, 2048),
-                               (8, 256, 128, 5, 256)):
+                               (8, 256, 128, 5, 256),
+                               (1, 2048, 256, 1900, 128),
+                               (1, 16384, 768, 15999, 2048),
+                               (100, 8192, 256, 8100, 4096)):
         v = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g),
                                           dim=1)
         q = v[torch.randint(0, n, (b,), generator=g)]
         v8, vs, vsq, q8, qmeta = [t.to(cuda_device) for t in
                                   _int8_inputs(v, q, (v * v).sum(1))]
         nvkey = -scan.int8_vkey(vs, vsq, metric)
+        if b == 1:
+            assert scan.split_plan(1, n_pad // nt, sms) > 2
         before = scan.int8_packed_topk.launches
         kd, kr = scan.int8_packed_bank(v8, nvkey, q8, n, nt=nt)
         assert scan.int8_packed_topk.launches == before + 1
@@ -239,6 +251,27 @@ def test_packed_kernel_matches_plain_version(metric, cuda_device):
         dk, rk = scan.int8_packed_topk(v8, vs, vsq, q8, qmeta, n, k=10,
                                        metric=metric, bt=b, nt=nt)
         assert ((rk >= 0) & (rk < n)).all() or n < 10
+
+    # Duplicates: rows r and r + 256 are one vector, so at nt = 512 every
+    # nt-row tile holds two copies of each of a bucket's two vectors. 64
+    # queries per SM fill the card with query blocks, so one split walks
+    # every tile and the rows are the plain version's exactly.
+    b, n_pad, d, n, nt = 64 * sms, 2048, 128, 1950, 512
+    assert scan.split_plan(-(-b // 64), n_pad // nt, sms) == 1
+    base = torch.nn.functional.normalize(torch.randn(256, d, generator=g),
+                                         dim=1)
+    v = base[torch.arange(n_pad) % 256]
+    q = base[torch.randint(0, 256, (b,), generator=g)] + \
+        0.1 * torch.randn(b, d, generator=g)
+    v8, vs, vsq, q8, _ = [t.to(cuda_device) for t in
+                          _int8_inputs(v, q, (v * v).sum(1))]
+    nvkey = -scan.int8_vkey(vs, vsq, metric)
+    kd, kr = scan.int8_packed_bank(v8, nvkey, q8, n, nt=nt)
+    pd, pr = scan.int8_packed_bank_plain(v8, nvkey, q8, n, nt=nt)
+    torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+    assert bool(torch.equal(kr, pr))
+    # every kept pair is a tie: both halves of the bank hold equal keys
+    assert bool(torch.equal(kd[:, :128], kd[:, 128:]))
 
 
 def test_flat_scan_kernels_on_the_card(cuda_device):
