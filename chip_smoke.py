@@ -27,7 +27,15 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      partitions) and IVF-HNSW (32 clusters) built, searched at B=1024
      through the hop_score kernel at hop width 256, measured with the
      ported bench harness (recall@10 against the exact flat index, QPS,
-     build seconds), and saved and loaded with identical rows.
+     build seconds), and saved and loaded with identical rows;
+  7. the four families ported last at full width, on phase 4's corpus and
+     1,024 of its rows as queries, with bench.py's settings: IVF-FLAT (128
+     partitions, spill), Lightning ("smart"), PCAF and LSH (defaults), each
+     built, searched at its modes against its recall@10 bar, measured with
+     the ported harness (qps_device at B=1024), and saved and loaded in
+     .npz and .idx with identical rows. These families run no hand-written
+     kernel: phase 7 launches none of the eleven, and checks that it did
+     not.
 Phase 3 prints each kernel's ptxas registers and spill bytes on its [kernel]
 lines. Phases 4, 5 and 6 each zero the launch counts just before and read
 them just after; each must have run its kernels, and all eleven together.
@@ -956,6 +964,145 @@ def probe_path(torch, data, records, floor_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the families ported last
+# ---------------------------------------------------------------------------
+
+# family, build options (bench.py's), searches (label, mode, options), the
+# mode of the bar and its recall@10 bar
+FAMILIES7 = (
+    ("ivf_flat", dict(num_partitions=128, spill=1),
+     (("balanced", "balanced", {}), ("accurate", "accurate", {}),
+      ("precise", "precise", {}),
+      ("accurate_full", "accurate", dict(scan="full"))),
+     "accurate", 0.95),
+    ("lightning", dict(partitioning="smart"),
+     (("accurate", "accurate", {}), ("precise", "precise", {})),
+     "precise", 0.85),
+    ("pcaf", {},
+     (("balanced", "balanced", {}), ("accurate", "accurate", {}),
+      ("precise", "precise", {})),
+     "precise", 0.60),
+    ("hybrid_lsh", {},
+     (("accurate", "accurate", {}), ("precise", "precise", {})),
+     "precise", 0.45),
+)
+
+
+def device_share(torch, fn, batches: int = 3) -> dict:
+    """Host wall ms per synchronized batch, device ms per batch summed over
+    the kernels and copies torch.profiler saw (one stream), the device's
+    idle share, and the op that took the most device time; as
+    scripts/profile_torch_port.py measures them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / batches * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / batches / 1e3
+    top = max(events, key=lambda e: e.self_device_time_total, default=None)
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                device_idle_share=1 - device_ms / wall_ms,
+                top_device_op=json.dumps(top.key[:60] if top else None),
+                top_device_ms=(top.self_device_time_total / batches / 1e3
+                               if top else 0.0))
+
+
+def families_path(torch, data):
+    """The four families ported last at full width: built with bench.py's
+    settings, searched at B=1024 against the exact f32 flat index, measured
+    with the ported harness, and reloaded in both formats."""
+    import tempfile
+
+    import hnsw_tpu_torch as ht
+    from hnsw_tpu_torch.bench import measure_build, run_search_benchmark
+    from hnsw_tpu_torch.models import FlatIndex, LightningIndex
+    from hnsw_tpu_torch.ops import hop, probes, scan
+    from hnsw_tpu_torch.types import Corpus
+
+    kernels = (hop.hop_score, hop.hop_score_int8, scan.bucket_topk,
+               scan.int8_bucket_topk, scan.exact_topk_sweep,
+               scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
+               probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
+               probes.matmul_min)
+    before = [fn.launches for fn in kernels]
+    corpus = Corpus.from_array(data, metric="cosine")
+    q = corpus.pad_queries(data[:1024])
+    _, truth = FlatIndex(corpus).search_batch(q, K)
+    with tempfile.TemporaryDirectory() as tmp:
+        for fam, kw, runs, bar_mode, bar in FAMILIES7:
+            idx, build_s = measure_build(
+                lambda: ht.build_index(corpus, fam, **kw))
+            recalls, rows = {}, {}
+            fields = {}
+            for label, mode, opts in runs:
+                d, r = idx.search_batch(q, K, mode, **opts)
+                check(bool(torch.isfinite(d[r >= 0]).all()),
+                      f"{fam} {label}: non-finite distances")
+                check(bool((r >= 0).all()), f"{fam} {label}: row -1")
+                recalls[label] = recall(r, truth)
+                rows[label] = r
+                if fam == "ivf_flat" and label == bar_mode:
+                    fields["last_grouped_dropped_pairs"] = \
+                        idx.index_info()["last_grouped_dropped_pairs"]
+            if fam == "ivf_flat":
+                agree = recall(rows["accurate_full"], rows["accurate"])
+                fields["grouped_full_agreement"] = agree
+                check(agree >= 0.97, f"ivf_flat: grouped and full rows "
+                      f"agree {agree} < 0.97")
+            if fam == "lightning":
+                # random probes of the same share of partitions
+                rand = LightningIndex(corpus, idx.table, use_centroids=False,
+                                      partitioning=idx.partitioning)
+                _, r = rand.search_batch(q, K, "precise")
+                check(bool((r >= 0).all()), "lightning random: row -1")
+                recalls["precise_random"] = recall(r, truth)
+            if fam == "hybrid_lsh":
+                info = idx.index_info()
+                fields["overflow_dropped_slots"] = \
+                    info["overflow_dropped_slots"]
+                fields["overflow_rows_unreachable"] = \
+                    info["overflow_rows_unreachable"]
+            perf = run_search_benchmark(idx, data[:1024], k=K,
+                                        mode=bar_mode,
+                                        batch_size=1024, warmup=1, iters=3,
+                                        single_query_iters=0)
+            say("families7", family=fam, **kw, build_seconds=build_s,
+                batch=1024, recall_at_10=json.dumps(recalls),
+                bar=f"{bar}@{bar_mode}", qps_device=perf["qps_device"],
+                qps_batched=perf["qps_batched"], **fields)
+            say("families7", stage="profile", family=fam, mode=bar_mode,
+                batch=1024, **device_share(
+                    torch, lambda: idx.search_batch(q, K, bar_mode)))
+            check(recalls[bar_mode] >= bar,
+                  f"{fam} {bar_mode}: recall {recalls[bar_mode]} < {bar}")
+            for fmt in ("npz", "dir"):
+                t0 = time.perf_counter()
+                back = ht.load_index(ht.save_index(idx, f"{tmp}/{fam}",
+                                                   format=fmt))
+                torch.cuda.synchronize()
+                reload_s = time.perf_counter() - t0
+                check(type(back) is type(idx) and _rows_equal(
+                    torch, back.search_batch(q, K, bar_mode)[1],
+                    rows[bar_mode]), f"{fam}: rows differ after {fmt} reload")
+                say("families7", stage="persist", family=fam, format=fmt,
+                    save_load_seconds=reload_s, rows_identical=True)
+            del idx, back
+            torch.cuda.empty_cache()
+    after = [fn.launches for fn in kernels]
+    check(after == before, "phase 7 launched a hand-written kernel")
+
+
 def main() -> int:
     try:
         import torch
@@ -1004,6 +1151,10 @@ def main() -> int:
     api_launches = api_path(torch, data)
     torch.cuda.empty_cache()
     probe_launches = probe_path(torch, data, records, floor_ms)
+    torch.cuda.empty_cache()
+    t7 = time.perf_counter()
+    families_path(torch, data)
+    say("families7", seconds=time.perf_counter() - t7)
     out = []
     for name in KERNELS:
         rec = records[name]

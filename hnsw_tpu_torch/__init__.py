@@ -37,8 +37,12 @@ from hnsw_tpu_torch.models import (  # noqa: E402
     FAMILIES,
     FlatIndex,
     HNSWIndex,
+    HybridLSHIndex,
+    IVFFlatIndex,
     IVFHNSWIndex,
+    LightningIndex,
     PartitionedHNSWIndex,
+    PCAFIndex,
     build_ivf_hnsw_index,
     build_partitioned_hnsw,
 )
@@ -51,7 +55,8 @@ __all__ = [
     "index_info", "index_type",
     "save_index", "load_index", "index_exists",
     "Index",
-    "ANNIndex", "FlatIndex", "HNSWIndex", "PartitionedHNSWIndex",
-    "IVFHNSWIndex", "build_partitioned_hnsw", "build_ivf_hnsw_index",
+    "ANNIndex", "FlatIndex", "HNSWIndex", "IVFFlatIndex", "LightningIndex",
+    "PartitionedHNSWIndex", "IVFHNSWIndex", "HybridLSHIndex", "PCAFIndex",
+    "build_partitioned_hnsw", "build_ivf_hnsw_index",
     "FAMILIES",
 ]

@@ -16,10 +16,11 @@ from hnsw_tpu_torch.models.base import ANNIndex
 
 
 def build_index(data, index_type: str = "hnsw", **opts) -> ANNIndex:
-    """Build an index family by name: flat, hnsw (+ reference aliases
-    brute_force, ultra_fast, pure_hnsw). The six families not ported yet
-    raise NotImplementedError. Common opts: metric=, ids=, seed=, device=;
-    family opts per builder."""
+    """Build an index family by name: flat, hnsw, partitioned_hnsw,
+    ivf_hnsw, ivf_flat, lightning, hybrid_lsh, pcaf (+ the reference
+    aliases brute_force, ultra_fast, pure_hnsw, partitioned, lsh). Common
+    opts: metric=, ids=, seed=, device=; the rest go to the family's
+    build function."""
     key = str(index_type).lstrip(":").lower().replace("-", "_")
     if key not in FAMILIES:
         raise ValueError(
@@ -36,8 +37,7 @@ def build_best_for_size(data, policy: str = "tpu", **opts) -> ANNIndex:
     opts win over the policy's (precision= included).
 
     policy="reference" reproduces the reference wrapper's sizing table
-    (<1k hnsw, <10k partitioned HNSW, else IVF-FLAT; the last two are not
-    ported yet and raise)."""
+    (<1k hnsw, <10k partitioned HNSW, else IVF-FLAT)."""
     n = len(data) if not hasattr(data, "n") else data.n
     if policy == "reference":
         if n < 1000:

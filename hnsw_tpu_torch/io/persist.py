@@ -83,7 +83,7 @@ def save_index(index, path: str, *, metadata: Optional[dict] = None,
 def load_index(path: str, *, return_metadata: bool = False,
                mmap: bool = True, stream_chunk_rows: int = STREAM_CHUNK_ROWS,
                device=None):
-    """Load a saved index of a ported family; the metric and params come
+    """Load a saved index of any family; the metric and params come
     from the stored header. Accepts both layouts (.npz file or .idx
     directory); directory loads map the arrays (mmap=True) and copy the
     corpus to the device in `stream_chunk_rows` chunks. The index lands on
@@ -118,9 +118,9 @@ def load_index(path: str, *, return_metadata: bool = False,
 
 
 def _index_class(family: str):
-    from hnsw_tpu_torch.models import INDEX_CLASSES, unported
+    from hnsw_tpu_torch.models import INDEX_CLASSES
     if family not in INDEX_CLASSES:
-        unported(family)
+        raise ValueError(f"unknown index family {family!r}")
     return INDEX_CLASSES[family]
 
 

@@ -1,37 +1,17 @@
-"""Index families. The JAX package has eight; flat, HNSW, partitioned HNSW
-and IVF-HNSW are ported. The other four keep their names (and the reference
-aliases) in FAMILIES, and building or loading one raises
-NotImplementedError naming the ROADMAP item that ports it."""
+"""Index families: the eight of the JAX package, under its names and the
+reference aliases. Flat/exact (the recall ground truth), HNSW, partitioned
+HNSW, Lightning, IVF-FLAT, IVF-HNSW, multi-probe LSH and PCAF."""
 
 from hnsw_tpu_torch.models.flat import FlatIndex, build_flat_index
 from hnsw_tpu_torch.models.hnsw import HNSWIndex, build_hnsw_index
+from hnsw_tpu_torch.models.ivf_flat import IVFFlatIndex, build_ivf_flat_index
 from hnsw_tpu_torch.models.ivf_hnsw import IVFHNSWIndex, build_ivf_hnsw_index
+from hnsw_tpu_torch.models.lightning import (LightningIndex,
+                                             build_lightning_index)
+from hnsw_tpu_torch.models.lsh import HybridLSHIndex, build_lsh_index
 from hnsw_tpu_torch.models.partitioned import (PartitionedHNSWIndex,
                                                build_partitioned_hnsw)
-
-# family (and alias) -> ROADMAP §A item that ports it
-UNPORTED = {
-    "lightning": "A8", "ivf_flat": "A8",
-    "lsh": "A10", "hybrid_lsh": "A10",
-    "pcaf": "A10",
-}
-
-
-def unported(family: str):
-    """Raise for a family the port does not have yet."""
-    if family in UNPORTED:
-        raise NotImplementedError(
-            f"index family {family!r} is not ported yet "
-            f"(ROADMAP item {UNPORTED[family]})")
-    raise ValueError(f"unknown index family {family!r}")
-
-
-def _later(family: str):
-    def build(data, **opts):
-        unported(family)
-    build.__name__ = f"build_{family}"
-    return build
-
+from hnsw_tpu_torch.models.pcaf import PCAFIndex, build_pcaf_index
 
 FAMILIES = {
     "flat": build_flat_index,
@@ -41,16 +21,29 @@ FAMILIES = {
     "pure_hnsw": build_hnsw_index,        # reference alias (pure_hnsw.clj)
     "partitioned": build_partitioned_hnsw,
     "partitioned_hnsw": build_partitioned_hnsw,
+    "lightning": build_lightning_index,
+    "ivf_flat": build_ivf_flat_index,
     "ivf_hnsw": build_ivf_hnsw_index,
-    **{name: _later(name) for name in UNPORTED},
+    "lsh": build_lsh_index,
+    "hybrid_lsh": build_lsh_index,
+    "pcaf": build_pcaf_index,
 }
 
 # family name -> class, for loaders that dispatch on a saved family
-INDEX_CLASSES = {cls.family: cls for cls in (FlatIndex, HNSWIndex,
-                                             PartitionedHNSWIndex,
-                                             IVFHNSWIndex)}
+INDEX_CLASSES = {
+    cls.family: cls
+    for cls in (FlatIndex, HNSWIndex, IVFFlatIndex, LightningIndex,
+                PartitionedHNSWIndex, IVFHNSWIndex, HybridLSHIndex, PCAFIndex)
+}
 
-__all__ = ["FlatIndex", "HNSWIndex", "PartitionedHNSWIndex", "IVFHNSWIndex",
-           "build_flat_index", "build_hnsw_index", "build_partitioned_hnsw",
-           "build_ivf_hnsw_index", "FAMILIES", "INDEX_CLASSES", "UNPORTED",
-           "unported"]
+__all__ = [
+    "FlatIndex", "build_flat_index",
+    "HNSWIndex", "build_hnsw_index",
+    "IVFFlatIndex", "build_ivf_flat_index",
+    "LightningIndex", "build_lightning_index",
+    "PartitionedHNSWIndex", "build_partitioned_hnsw",
+    "IVFHNSWIndex", "build_ivf_hnsw_index",
+    "HybridLSHIndex", "build_lsh_index",
+    "PCAFIndex", "build_pcaf_index",
+    "FAMILIES", "INDEX_CLASSES",
+]

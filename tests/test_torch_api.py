@@ -10,8 +10,10 @@ package, on the CPU.
    the .idx directory): an index saved by one package loads in the other
    with the same header, arrays, ids and metadata, and answers with
    identical rows.
-3. Names: the four families not ported yet raise NotImplementedError naming
-   their ROADMAP item, not the unknown-type ValueError.
+3. Names: the five names of the families ported last (IVF-FLAT, Lightning,
+   LSH and PCAF, with the alias lsh) build through build_index as the
+   JAX package's index of that name, and cross-package .npz persistence
+   both ways for those four families.
 4. A reference fault not copied (ROADMAP §C): build_best_for_size lets a
    caller's precision= win where the reference raises TypeError.
 """
@@ -53,13 +55,17 @@ def test_unknown_family_raises():
         ht.build_index(DATA, "nope", **CPU)
 
 
-@pytest.mark.parametrize("kind,item", [
-    ("lightning", "A8"), ("ivf_flat", "A8"), ("lsh", "A10"),
-    ("hybrid_lsh", "A10"), ("pcaf", "A10")])
-def test_unported_families_name_their_roadmap_item(kind, item):
+@pytest.mark.parametrize("kind", ["lightning", "ivf_flat", "lsh",
+                                  "hybrid_lsh", "pcaf"])
+def test_late_families_build_as_the_reference_names_them(kind):
     assert kind in hnsw_tpu.FAMILIES and kind in ht.FAMILIES
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        ht.build_index(DATA, kind, **CPU)
+    j = hnsw_tpu.build_index(DATA, kind)
+    t = ht.build_index(DATA, kind, **CPU)
+    assert (t.family, t.index_type, ht.index_info(t)["type"]) == \
+        (j.family, j.index_type, hnsw_tpu.index_info(j)["type"])
+    assert type(t) is ht.models.INDEX_CLASSES[j.family]
+    hits = ht.search_knn(t, DATA[0], 5, mode="precise")
+    assert len(hits) == 5 and hits[0]["distance"] < 1e-3
 
 
 def test_build_best_for_size_both_policies():
@@ -72,9 +78,9 @@ def test_build_best_for_size_both_policies():
     mid = make_unit(1000, 8, seed=3)          # < 10k rows: partitioned HNSW
     assert ht.build_best_for_size(mid, policy="reference", M=8,
                                   **CPU).family == "partitioned_hnsw"
-    big = make_unit(10000, 4, seed=3)         # IVF-FLAT, not ported yet
-    with pytest.raises(NotImplementedError, match="A8"):
-        ht.build_best_for_size(big, policy="reference", **CPU)
+    big = make_unit(10000, 4, seed=3)         # >= 10k rows: IVF-FLAT
+    assert ht.build_best_for_size(big, policy="reference",
+                                  **CPU).family == "ivf_flat"
 
 
 def test_build_best_for_size_lets_precision_win():
@@ -186,6 +192,34 @@ def test_port_save_loads_in_jax(tmp_path, family, fmt):
                                       arr)
     q = DATA[:40]
     np.testing.assert_array_equal(_rows(j, q), _rows(t, q))
+
+
+LATE_OPTS = {
+    "ivf_flat": dict(num_partitions=6, spill=1),
+    "lightning": dict(num_partitions=6, use_centroids=False),
+    "hybrid_lsh": dict(num_bits=6),
+    "pcaf": dict(n_components=16),
+}
+
+
+@pytest.mark.parametrize("family", list(LATE_OPTS))
+def test_late_families_persist_across_packages(tmp_path, family):
+    """.npz both ways: the JAX package's file loads in the port and the
+    port's in the JAX package, with equal params and arrays and identical
+    rows (Lightning's random probes from the same seed and call order)."""
+    q = DATA[:40]
+    j = hnsw_tpu.build_index(DATA, family, ids=IDS, **LATE_OPTS[family])
+    t = ht.load_index(hnsw_tpu.save_index(j, str(tmp_path / "jax")), **CPU)
+    t2 = ht.build_index(DATA, family, ids=IDS, **LATE_OPTS[family], **CPU)
+    j2 = hnsw_tpu.load_index(ht.save_index(t2, str(tmp_path / "port")))
+    for a, b in ((t, j), (j2, t2)):
+        assert type(a).__name__ == type(b).__name__
+        assert list(a.corpus.ids) == IDS
+        assert a.to_state()["params"] == b.to_state()["params"]
+        for name, arr in b.to_state()["arrays"].items():
+            np.testing.assert_array_equal(
+                np.asarray(a.to_state()["arrays"][name]), np.asarray(arr))
+        np.testing.assert_array_equal(_rows(a, q), _rows(b, q))
 
 
 def test_dir_load_streams_in_chunks(tmp_path):
