@@ -35,9 +35,20 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      the ported harness (qps_device at B=1024), and saved and loaded in
      .npz and .idx with identical rows. These families run no hand-written
      kernel: phase 7 launches none of the eleven, and checks that it did
-     not.
+     not;
+  8. the large-N path at full width (large_path): a 500,000 x 768
+     embedding-like corpus (bench.py's scale-sweep recipe, seed 7), the
+     exact f32 flat index as ground truth for 1,024 of its rows, the HNSW
+     build through the bucketed builder with bench.py's settings for that
+     size (M=16, one layer, pack_dim=128, 4 probes, 2 refine rounds; the
+     seconds of each stage, the builder's plan and the peak memory
+     printed), serving at B=1,024 in four modes (recall@10, bar 0.95 at
+     accurate; qps_device from the harness), and hop_score held against its
+     plain version on the 128-dim pack; then the builder on the card
+     against the CPU at 8,192 x 768, and phase 4's HNSW index served with
+     the "sort", "bitonic" and "approx" beam merges.
 Phase 3 prints each kernel's ptxas registers and spill bytes on its [kernel]
-lines. Phases 4, 5 and 6 each zero the launch counts just before and read
+lines. Phases 4, 5, 6 and 8 each zero the launch counts just before and read
 them just after; each must have run its kernels, and all eleven together.
 Then one
 JSON line of per-kernel records, and as the last line
@@ -69,6 +80,11 @@ KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
+# phase 8: bench.py's scale-sweep corpus (make_corpus, seed 7) at 500,000
+# rows and its HNSW settings for 150,000 < n <= 600,000 (bench.py:446-460)
+LARGE_ROWS, LARGE_SEED = 500_000, 7
+LARGE_BUILD = dict(M=16, hierarchy=False, pack_dim=128,
+                   large_probe_clusters=4)
 
 
 # the ptxas entry of each kernel: its source and a piece of its mangled name
@@ -671,7 +687,7 @@ def main_path(torch, data):
     say("main", launches=json.dumps(launches), batches=json.dumps(batches))
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
-    return launches
+    return launches, served
 
 
 # ---------------------------------------------------------------------------
@@ -1103,6 +1119,211 @@ def families_path(torch, data):
     check(after == before, "phase 7 launched a hand-written kernel")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the large-N path
+# ---------------------------------------------------------------------------
+
+def all_kernels():
+    from hnsw_tpu_torch.ops import hop, probes, scan
+    return (hop.hop_score, hop.hop_score_int8, scan.bucket_topk,
+            scan.int8_bucket_topk, scan.exact_topk_sweep,
+            scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
+            probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
+            probes.matmul_min)
+
+
+def overlap(a, b) -> float:
+    """Mean row-set overlap |a_i & b_i| / |a_i | b_i| of two adjacencies."""
+    scores = []
+    for x, y in zip(a, b):
+        sx, sy = set(x[x >= 0].tolist()), set(y[y >= 0].tolist())
+        scores.append(len(sx & sy) / max(len(sx | sy), 1))
+    return sum(scores) / max(len(scores), 1)
+
+
+def large_path(torch, n: int = LARGE_ROWS, refine_rounds: int = 2):
+    """An HNSW index past LARGE_N through the user's entry points: corpus,
+    exact ground truth, build_hnsw_index with bench.py's large settings
+    (the bucketed builder), serving in four modes, and the hop kernel of
+    its pack held against its plain version at the pack's shape. Returns
+    the corpus rows (host) for the builder check."""
+    import logging
+
+    from hnsw_tpu_torch.bench import run_search_benchmark
+    from hnsw_tpu_torch.io.datagen import generate_vectors
+    from hnsw_tpu_torch.models import FlatIndex, build_hnsw_index
+    from hnsw_tpu_torch.ops import hop
+    from hnsw_tpu_torch.types import Corpus
+
+    t0 = time.perf_counter()
+    data = generate_vectors(n, DIM, distribution="embedding",
+                            num_clusters=64, seed=LARGE_SEED)
+    gen_s = time.perf_counter() - t0
+    corpus = Corpus.from_array(data, metric="cosine")
+    q = corpus.pad_queries(data[:1024])
+    _, truth = FlatIndex(corpus).search_batch(q, K)
+    torch.cuda.synchronize()
+    say("large", n=n, dim=DIM, seed=LARGE_SEED, generate_seconds=gen_s,
+        corpus_and_truth_seconds=time.perf_counter() - t0 - gen_s)
+
+    # (b) the build: each progress tick closes the stage before it
+    stages = {}
+    clock = [time.perf_counter(), "start"]
+
+    def progress(stage, frac):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[clock[1]] = stages.get(clock[1], 0.0) + now - clock[0]
+        clock[:] = [now, stage]
+
+    plan = logging.StreamHandler(sys.stdout)
+    plan.setFormatter(logging.Formatter("[large] %(message)s"))
+    blog = logging.getLogger("hnsw_tpu_torch.models.hnsw.build_large")
+    blog.setLevel(logging.INFO)
+    blog.addHandler(plan)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        hnsw = build_hnsw_index(corpus, progress=progress,
+                                large_refine_rounds=refine_rounds,
+                                **LARGE_BUILD)
+        progress("end", 1.0)
+    finally:
+        blog.removeHandler(plan)
+    build_s = time.perf_counter() - t0
+    say("large", build_seconds=build_s, settings=json.dumps(dict(
+        LARGE_BUILD, large_refine_rounds=refine_rounds)),
+        stage_seconds=json.dumps(stages),
+        peak_gib_build=torch.cuda.max_memory_allocated() / 2 ** 30,
+        bridge_edges=hnsw.graph.n_bridges, max_level=hnsw.graph.max_level)
+
+    # (c) serving
+    hnsw.entry_sample = ENTRY_SAMPLE
+    for fn in (hop.hop_score, hop.hop_score_int8):
+        fn.launches = 0
+    recalls = {}
+    for mode in ("turbo", "fast", "balanced", "accurate"):
+        d, r, hops = hnsw.search_batch(q, K, mode, debug_hops=True)
+        check(bool((r >= 0).all()), f"{n} rows, {mode}: row -1 in the result")
+        check(bool(torch.isfinite(d).all()), f"{n} rows, {mode}: non-finite")
+        recalls[mode] = recall(r, truth)
+        say("large", mode=mode, batch=len(q), recall_at_10=recalls[mode],
+            hops=hops)
+    check(recalls["accurate"] >= 0.95,
+          f"recall {recalls['accurate']} < 0.95 at accurate")
+    best = next(m for m in recalls if recalls[m] >= 0.95)
+    perf = run_search_benchmark(hnsw, data[:1024], k=K, mode=best,
+                                batch_size=1024, warmup=1, iters=3,
+                                single_query_iters=0)
+    say("large", mode=best, batch=1024, recall_at_10=recalls[best], bar=0.95,
+        qps_device=perf["qps_device"], qps_batched=perf["qps_batched"],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # (d) the hop kernel of this pack, at its shape, on 64 queries and the
+    # neighbourhoods of their first four results
+    pack = hnsw._nbr_pack
+    int8 = pack.dtype == torch.int8
+    name = "hop_score_int8" if int8 else "hop_score"
+    fn = hop.hop_score_int8 if int8 else hop.hop_score
+    plain = hop.hop_score_int8_plain if int8 else hop.hop_score_plain
+    check(fn.launches > 0, f"{n} rows: {name} was not launched")
+    qlp = torch.matmul(q[:64], hnsw._proj).contiguous()
+    sel = r[:64, :4].to(torch.int32).contiguous()
+    got, want = fn(pack, qlp, sel), plain(pack, qlp, sel)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
+    for err, w in zip(errs, want):
+        check(err <= 1e-4 * float(w.abs().max()),
+              f"{name} disagrees with its plain version: {errs}")
+    say("large", kernel=name, pack_dtype=str(pack.dtype).replace("torch.", ""),
+        shape="B=64,E=4,M0={},D={},N_pad={}".format(
+            pack.shape[1], pack.shape[2], pack.shape[0]),
+        pack_gib=pack.numel() * pack.element_size() / 2 ** 30,
+        max_abs_err=max(errs), tol="1e-4*max|plain|",
+        launches_serving=fn.launches)
+    del hnsw, pack, corpus
+    torch.cuda.empty_cache()
+    return data
+
+
+def builder_card_vs_cpu(torch, data):
+    """build_layer_clustered on the card and on the CPU at 8,192 x 768:
+    the CPU path is held against the JAX package by the tests, so the card
+    must give the CPU's rows."""
+    import numpy as np
+
+    from hnsw_tpu_torch.models.hnsw.build_large import build_layer_clustered
+    from hnsw_tpu_torch.types import Corpus
+
+    sub = data[:8192]
+    rows = np.arange(len(sub), dtype=np.int32)
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        c = Corpus.from_array(sub, metric="cosine", device=dev)
+        t0 = time.perf_counter()
+        out[dev] = build_layer_clustered(
+            c.vectors, c.sq_norms, rows, cap=32, k_cand=64, metric="cosine",
+            cluster_size=1024, n_probe_clusters=2, refine_rounds=1,
+            precision="highest")
+        secs[dev] = time.perf_counter() - t0
+    ov = overlap(out["cuda"], out["cpu"])
+    say("large", stage="builder_card_vs_cpu", n=len(sub), dim=DIM,
+        overlap=ov, bar=0.98, identical_rows=float(
+            (out["cuda"] == out["cpu"]).all(axis=1).mean()),
+        card_seconds=secs["cuda"], cpu_seconds=secs["cpu"])
+    check(ov >= 0.98, f"builder card against CPU: overlap {ov} < 0.98")
+
+
+def merges_path(torch, index, queries):
+    """Phase 4's HNSW index served at balanced with each beam merge. The
+    index has no merge option (nor has the reference's), so the merge is
+    bound into the hnsw_search_batch its search_batch calls."""
+    import functools
+
+    import hnsw_tpu_torch.models.hnsw as hmod
+
+    real = hmod.hnsw_search_batch
+    rows, ms = {}, {}
+    try:
+        for merge in ("sort", "bitonic", "approx"):
+            hmod.hnsw_search_batch = functools.partial(real, merge=merge)
+            rows[merge] = index.search_batch(queries, K, "balanced")[1]
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                index.search_batch(queries, K, "balanced")
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[merge] = statistics.median(times)
+    finally:
+        hmod.hnsw_search_batch = real
+    agree = {m: _row_agreement(rows[m], rows["sort"])
+             for m in ("bitonic", "approx")}
+    say("large", stage="merges", n=index.corpus.n, batch=len(queries),
+        mode="balanced", batch_ms=json.dumps(ms),
+        row_agreement_with_sort=json.dumps(agree), bar=0.999)
+    for m, a in agree.items():
+        check(a >= 0.999, f"merge {m}: row agreement {a} < 0.999")
+
+
+def large_phase(torch, served, queries):
+    """Phase 8: the large-N path, the builder on card against CPU, and the
+    merges; launch counts zeroed just before and read just after."""
+    kernels = all_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    data = large_path(torch)
+    builder_card_vs_cpu(torch, data)
+    merges_path(torch, served, queries)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    say("large", launches=json.dumps(launches))
+    check(launches["hop_score"] > 0, "hop_score was not launched in phase 8")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1146,7 +1367,7 @@ def main() -> int:
     floor_ms = check_probe_kernels(torch, data, records)
     torch.cuda.empty_cache()
 
-    launches = main_path(torch, data)
+    launches, served = main_path(torch, data)
     torch.cuda.empty_cache()
     api_launches = api_path(torch, data)
     torch.cuda.empty_cache()
@@ -1155,12 +1376,16 @@ def main() -> int:
     t7 = time.perf_counter()
     families_path(torch, data)
     say("families7", seconds=time.perf_counter() - t7)
+    t8 = time.perf_counter()
+    large_launches = large_phase(torch, served, data[:1024])
+    say("large", seconds=time.perf_counter() - t8)
+    del served
     out = []
     for name in KERNELS:
         rec = records[name]
         rec["launches"] = (launches.get(name, 0) + api_launches.get(name, 0)
-                           + probe_launches[name])
-        check(rec["launches"] > 0, f"{name} was not launched in phases 4-6")
+                           + probe_launches[name] + large_launches[name])
+        check(rec["launches"] > 0, f"{name} was not launched in phases 4-8")
         out.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

@@ -1,6 +1,6 @@
 """HNSW index family. Counterpart of ``hnsw_tpu/models/hnsw/__init__.py``:
-exact-candidate build and wave insert (build.py) and batched fixed-beam
-search (search.py).
+exact-candidate build and wave insert (build.py), the bucketed builder past
+LARGE_N rows (build_large.py) and batched fixed-beam search (search.py).
 Mode presets map to ef as in ``config.HNSW_EF``.
 """
 
@@ -268,6 +268,8 @@ def build_hnsw_index(
     pack_dim: Optional[int] = None,
     pack_precision: str = "auto",
     rerank_mult: int = 4,
+    large_probe_clusters: int = 2,
+    large_refine_rounds: int = 1,
     hierarchy: bool = True,
     progress=None,
     should_continue=None,
@@ -284,6 +286,8 @@ def build_hnsw_index(
         graph = build_graph(corpus, m=M, m0=max_M0,
                             ef_construction=ef_construction,
                             seed=seed, k_cand=k_cand,
+                            large_probe_clusters=large_probe_clusters,
+                            large_refine_rounds=large_refine_rounds,
                             hierarchy=hierarchy,
                             progress=progress, should_continue=should_continue)
     return HNSWIndex(corpus, graph, expand=expand, pack_dim=pack_dim,

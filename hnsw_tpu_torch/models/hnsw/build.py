@@ -1,5 +1,5 @@
 """HNSW construction from exact candidate sets, and the incremental wave
-insert. Counterpart of ``hnsw_tpu/models/hnsw/build.py`` for N <= LARGE_N.
+insert. Counterpart of ``hnsw_tpu/models/hnsw/build.py``.
 
 For each layer the builder computes the EXACT kNN candidate set of every node
 (tiled product + top-k), applies the neighbour-selection heuristic (keep a
@@ -7,8 +7,9 @@ candidate iff it is closer to the node than to any already-selected
 neighbour, then re-add pruned candidates to fill spare slots), and
 symmetrizes with a reverse-edge pass + heuristic re-prune. Upper layers
 repeat the recipe on the level-l subset; layers of at most HOST_LAYER_MAX
-nodes are built in numpy. Connectivity repair (repair.py) bridges the
-components an exact-kNN graph leaves on clustered data. ``insert_wave``
+nodes are built in numpy, and layers of more than LARGE_N nodes by the
+bucketed builder of build_large.py. Connectivity repair (repair.py) bridges
+the components an exact-kNN graph leaves on clustered data. ``insert_wave``
 connects a wave of appended rows into an existing graph (the add path of
 ``HNSWIndex.add_batch``).
 
@@ -37,9 +38,6 @@ from hnsw_tpu_torch.types import Corpus, Metric
 BUILD_TILE = 1024
 # layers at or below this size build entirely on host
 HOST_LAYER_MAX = 512
-# the reference's bucketed large-N builder (build_large.py) takes over above
-# this many rows; it is not ported yet
-LARGE_N = 150_000
 
 
 class BuildInterrupted(Exception):
@@ -443,10 +441,18 @@ def build_graph(
     progress=None,          # callable(stage: str, fraction: float)
     should_continue=None,   # callable() -> bool; False aborts (BuildInterrupted)
     build_precision: str = "auto",  # "auto" | "highest" | "bf16"
+    large_probe_clusters: int = 2,  # past LARGE_N: each node pools its cell
+                                    # + this many nearest cells
+                                    # (build_large.py)
+    large_refine_rounds: int = 1,   # past LARGE_N: NN-descent polish rounds
     hierarchy: bool = True,  # False: single-layer graph (levels all 0)
 ) -> HNSWGraph:
     """Build the full hierarchy on the corpus's device. k_cand is the
-    exact-kNN candidate pool fed to the heuristic."""
+    exact-kNN candidate pool fed to the heuristic. Layers of more than
+    build_large.LARGE_N rows take the bucketed builder."""
+    from hnsw_tpu_torch.models.hnsw.build_large import (
+        LARGE_N, build_layer_clustered,
+    )
 
     def _tick(stage, frac):
         if should_continue is not None and not should_continue():
@@ -454,10 +460,6 @@ def build_graph(
         if progress is not None:
             progress(stage, frac)
     n = corpus.n
-    if n > LARGE_N:
-        raise NotImplementedError(
-            f"n={n} > LARGE_N={LARGE_N} takes the bucketed large-N builder "
-            "(build_large.py), which a later slice of the port brings")
     n_pad = corpus.n_pad
     dev = corpus.device
     m0 = m0 or 2 * m
@@ -485,12 +487,25 @@ def build_graph(
     adj0 = np.full((n_pad, m0), NONE, np.int32)
     adj_upper = np.full((max_level, n_pad, m), NONE, np.int32)
 
+    def clustered(members, cap, kc):
+        return build_layer_clustered(
+            corpus.vectors, corpus.sq_norms, members, cap=cap, k_cand=kc,
+            metric=metric, seed=seed, n_probe_clusters=large_probe_clusters,
+            refine_rounds=large_refine_rounds, precision=build_precision,
+            progress=progress)
+
+    # layers past LARGE_N build synchronously with the bucketed builder;
+    # the others are dispatched here and fetched after the host layers
     pending = []     # (level, device adjacency, member_rows)
     _tick("layer0", 0.0)
     if n > 1:
-        pending.append((0, *build_layer_dispatch(
-            corpus.vectors, np.arange(n, dtype=np.int32), cap=m0,
-            k_cand=k_cand, metric=metric, precision=build_precision)))
+        members0 = np.arange(n, dtype=np.int32)
+        if n > LARGE_N:
+            adj0[:n] = clustered(members0, m0, k_cand)
+        else:
+            pending.append((0, *build_layer_dispatch(
+                corpus.vectors, members0, cap=m0, k_cand=k_cand,
+                metric=metric, precision=build_precision)))
     _tick("layer0", 1.0)
 
     host_layers = []
@@ -499,7 +514,10 @@ def build_graph(
         members = np.nonzero(levels_np >= l)[0].astype(np.int32)
         if len(members) <= 1:
             continue
-        if len(members) > HOST_LAYER_MAX:
+        if len(members) > LARGE_N:
+            adj_upper[l - 1, members] = clustered(members, m,
+                                                  min(k_cand, 4 * m))
+        elif len(members) > HOST_LAYER_MAX:
             pending.append((l, *build_layer_dispatch(
                 corpus.vectors, members, cap=m,
                 k_cand=min(k_cand, 4 * m), metric=metric,

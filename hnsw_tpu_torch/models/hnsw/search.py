@@ -25,10 +25,9 @@ from __future__ import annotations
 import torch
 
 from hnsw_tpu_torch.ops.distance import BIG, _dist_bc
+from hnsw_tpu_torch.ops.sort import bitonic_topk_presorted
 from hnsw_tpu_torch.ops.topk import top_k_ascending
 from hnsw_tpu_torch.types import Metric
-
-_LATER = "waits for ops/sort.py, which a later slice of the port brings"
 
 
 def _beam_merge(beam_d, beam_i, beam_e, cand_d, cand_i, ef: int,
@@ -40,9 +39,16 @@ def _beam_merge(beam_d, beam_i, beam_e, cand_d, cand_i, ef: int,
     payload (as the reference's one-key ``lax.sort``); -1 ids map to -2/-1
     payloads whose arithmetic >> 1 restores -1. Variants behind force=:
     "topk" (stable top-k + payload gathers), "onehot" (top-k + one-hot
-    payload reduction)."""
-    if force in ("approx", "bitonic"):
-        raise NotImplementedError(f"merge={force!r} {_LATER}")
+    payload reduction), "bitonic" (the ops/sort.py network over the sorted
+    beam and the unsorted candidates) and "approx". The reference's
+    "approx" is ``lax.approx_min_k(recall_target=0.95)``, which XLA lowers to
+    an exact top-k off the TPU; here it is the exact stable top-k, which
+    meets that recall target."""
+    if force == "bitonic":
+        pay_beam = (beam_i << 1) | beam_e.to(beam_i.dtype)
+        kd, kv = bitonic_topk_presorted(beam_d, pay_beam, cand_d, cand_i << 1,
+                                        ef)
+        return kd, kv >> 1, (kv & 1) == 1
     all_d = torch.cat([beam_d, cand_d], dim=-1)
     all_i = torch.cat([beam_i, cand_i], dim=-1)
     all_e = torch.cat([beam_e, torch.zeros_like(cand_d, dtype=torch.bool)],
