@@ -46,10 +46,27 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      accurate; qps_device from the harness), and hop_score held against its
      plain version on the 128-dim pack; then the builder on the card
      against the CPU at 8,192 x 768, and phase 4's HNSW index served with
-     the "sort", "bitonic" and "approx" beam merges.
+     the "sort", "bitonic" and "approx" beam merges;
+  9. the multi-device layer and the tools (parallel_path), on phase 4's
+     corpus and 1,024 of its rows as queries, each sharded call on the card
+     as a mesh of one (make_mesh()) and on a virtual mesh of four cuda:0
+     entries: ShardedFlatIndex against the exact f32 index (identical rows,
+     distances within 1e-5), sharded_lloyd_step of 128 centroids against
+     ops/kmeans.lloyd (1e-4, identical assignments), ShardedIVFFlat over
+     bench.py's IVF-FLAT against its unsharded masked scan (identical rows,
+     recall@10 >= 0.95 at accurate), build_partitioned_hnsw_sharded (8
+     partitions, M=16) on the virtual mesh searched through
+     ShardedPartitionedHNSW at precise (recall@10 >= 0.95, the same rows on
+     both meshes) and through its single-device search (hop_score),
+     dryrun_multichip on each mesh; then `bench.cli quick 1000`, a
+     SearchShell over a 2,000-row JSON corpus and load_json_corpus of it
+     through the native parser. The virtual mesh's shards share one card
+     and one stream, so its times say nothing of a speed-up on several
+     cards.
 Phase 3 prints each kernel's ptxas registers and spill bytes on its [kernel]
-lines. Phases 4, 5, 6 and 8 each zero the launch counts just before and read
-them just after; each must have run its kernels, and all eleven together.
+lines. Phases 4, 5, 6, 8 and 9 each zero the launch counts just before and
+read them just after; each must have run its kernels, and all eleven
+together.
 Then one
 JSON line of per-kernel records, and as the last line
 {"ok": true, "device": {...}}.
@@ -1324,6 +1341,236 @@ def large_phase(torch, served, queries):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the multi-device layer and the tools
+# ---------------------------------------------------------------------------
+
+def batch_ms(torch, fn, reps: int = 3) -> float:
+    """Median host ms of `reps` synchronized calls, after one untimed."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sharded_searches(torch, corpus, q, truth, exact_d, meshes, ms):
+    """ShardedFlatIndex, sharded_lloyd_step and ShardedIVFFlat on each mesh
+    against their unsharded twins."""
+    from hnsw_tpu_torch.models import build_ivf_flat_index
+    from hnsw_tpu_torch.ops.kmeans import lloyd
+    from hnsw_tpu_torch.parallel import ShardedFlatIndex, ShardedIVFFlat
+    from hnsw_tpu_torch.parallel.sharded import sharded_lloyd_step
+
+    # (1) the row-sharded exact search against phase 4's exact f32 index
+    for name, mesh in meshes.items():
+        sflat = ShardedFlatIndex(corpus, mesh)
+        d, r = sflat.search_batch(q, K)
+        err = float((d - exact_d).abs().max())
+        same = _rows_equal(torch, r, truth)
+        say("parallel", stage="flat", mesh=name, batch=len(q),
+            rows_identical=same, max_abs_err=err, tol=1e-5)
+        check(same and err <= 1e-5, f"sharded flat on {name}: rows "
+              f"identical {same}, distance error {err}")
+        ms[f"flat_{name}"] = batch_ms(torch, lambda: sflat.search_batch(q, K))
+        del sflat
+
+    # (2) one Lloyd step of 128 centroids (the corpus's first rows), against
+    # ops/kmeans.lloyd: iters=1 for the centroids, iters=0 for the
+    # assignment to the centroids the step starts from
+    dev = corpus.device
+    valid = torch.arange(corpus.n_pad, device=dev) < corpus.n
+    cents0 = corpus.vectors[:128]
+    want_c, _ = lloyd(corpus.vectors, corpus.sq_norms, valid, cents0,
+                      iters=1, metric=corpus.metric)
+    _, want_a = lloyd(corpus.vectors, corpus.sq_norms, valid, cents0,
+                      iters=0, metric=corpus.metric)
+    for name, mesh in meshes.items():
+        grow = -corpus.n_pad % mesh.size
+        pad = torch.nn.functional.pad
+        args = (pad(corpus.vectors, (0, 0, 0, grow)),
+                pad(corpus.sq_norms, (0, grow)),
+                torch.arange(corpus.n_pad + grow, device=dev) < corpus.n)
+        cents, assign = sharded_lloyd_step(mesh, *args, cents0,
+                                           metric=corpus.metric)
+        assign = torch.cat([a.to(mesh.first) for a in assign])[:corpus.n_pad]
+        err = float((cents - want_c).abs().max())
+        same = _rows_equal(torch, assign, want_a)
+        say("parallel", stage="lloyd", mesh=name, k=128, max_abs_err=err,
+            tol=1e-4, assignments_identical=same)
+        check(err <= 1e-4 and same, f"sharded Lloyd on {name}: centroid "
+              f"error {err}, assignments identical {same}")
+        ms[f"lloyd_{name}"] = batch_ms(torch, lambda: sharded_lloyd_step(
+            mesh, *args, cents0, metric=corpus.metric))
+
+    # (3) the cluster-sharded IVF scan over bench.py's IVF-FLAT (128
+    # partitions, spill), against the unsharded masked f32 scan (the
+    # reference's sharded scan is that scan); the default grouped scan
+    # scores bf16 operands, and its agreement is printed
+    ivf = build_ivf_flat_index(corpus, num_partitions=128, spill=1)
+    _, want_r = ivf.search_batch(q, K, "accurate", scan="full")
+    _, grouped_r = ivf.search_batch(q, K, "accurate")
+    for name, mesh in meshes.items():
+        sivf = ShardedIVFFlat(ivf, mesh)
+        d, r = sivf.search_batch(q, K, "accurate")
+        same = _rows_equal(torch, r, want_r)
+        rec = recall(r, truth)
+        say("parallel", stage="ivf_flat", mesh=name, batch=len(q),
+            mode="accurate", rows_identical_full_scan=same,
+            row_agreement_grouped=_row_agreement(r, grouped_r),
+            recall_at_10=rec, bar=0.95)
+        check(same and rec >= 0.95, f"sharded IVF on {name}: rows "
+              f"identical {same}, recall {rec}")
+        ms[f"ivf_accurate_{name}"] = batch_ms(
+            torch, lambda: sivf.search_batch(q, K, "accurate"))
+        del sivf
+    del ivf
+
+
+def parallel_path(torch, data):
+    """Phase 9 on phase 4's corpus with 1,024 of its rows as queries: the
+    sharded searches, the Lloyd step and the sharded build on the card as
+    a mesh of one and on a virtual mesh of four cuda:0 entries, the dry
+    run on each, then the bench CLI, the shell and the native parser.
+    Returns the launch counts of the phase."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from hnsw_tpu_torch.apps.shell import SearchShell
+    from hnsw_tpu_torch.bench import cli
+    from hnsw_tpu_torch.io import native
+    from hnsw_tpu_torch.io.loader import load_json_corpus
+    from hnsw_tpu_torch.models import FlatIndex
+    from hnsw_tpu_torch.ops import hop
+    from hnsw_tpu_torch.parallel import (ShardedPartitionedHNSW,
+                                         build_partitioned_hnsw_sharded,
+                                         make_mesh)
+    from hnsw_tpu_torch.parallel.dryrun import dryrun_multichip
+    from hnsw_tpu_torch.types import Corpus
+
+    kernels = all_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    corpus = Corpus.from_array(data, metric="cosine")
+    q = corpus.pad_queries(data[:1024])
+    exact_d, truth = FlatIndex(corpus).search_batch(q, K)
+    meshes = {"card": make_mesh(), "virtual4": make_mesh(4, device="cuda:0")}
+    check(meshes["card"].size == 1, f"make_mesh() has "
+          f"{meshes['card'].size} entries on a machine of one card")
+    ms = {}
+    sharded_searches(torch, corpus, q, truth, exact_d, meshes, ms)
+
+    # (4) the sharded build (8 partitions, M=16) on the virtual mesh
+    t0 = time.perf_counter()
+    pidx = build_partitioned_hnsw_sharded(corpus, num_partitions=8,
+                                          mesh=meshes["virtual4"], M=16)
+    torch.cuda.synchronize()
+    say("parallel", stage="build", mesh="virtual4", partitions=8, M=16,
+        build_seconds=time.perf_counter() - t0,
+        max_level=int(pidx.adj_upper_p.shape[1]))
+    rows = {}
+    for name, mesh in meshes.items():
+        sp = ShardedPartitionedHNSW(pidx, mesh)
+        d, r = sp.search_batch(q, K, "precise")
+        rows[name] = r
+        rec = recall(r, truth)
+        check(bool((r >= 0).all()) and bool(torch.isfinite(d).all()),
+              f"sharded partitioned on {name}: row -1 or non-finite")
+        say("parallel", stage="partitioned_hnsw", mesh=name, batch=len(q),
+            mode="precise", recall_at_10=rec, bar=0.95)
+        check(rec >= 0.95, f"sharded partitioned on {name}: recall {rec}")
+        ms[f"partitioned_precise_{name}"] = batch_ms(
+            torch, lambda: sp.search_batch(q, K, "precise"), reps=1)
+        del sp
+    same = _rows_equal(torch, rows["card"], rows["virtual4"])
+    say("parallel", stage="partitioned_hnsw", rows_identical_1_4=same)
+    check(same, "sharded partitioned: meshes of 1 and 4 give other rows")
+    # the same index through its single-device search (the packed hop path)
+    before = hop.hop_score.launches
+    d, r = pidx.search_batch(q, K, "accurate")
+    check(hop.hop_score.launches > before,
+          "single-device partitioned search did not launch hop_score")
+    rec = recall(r, truth)
+    say("parallel", stage="partitioned_hnsw", mesh="none (search_batch)",
+        mode="accurate", recall_at_10=rec,
+        hop_score_launches=hop.hop_score.launches - before)
+    ms["partitioned_single_accurate"] = batch_ms(
+        torch, lambda: pidx.search_batch(q, K, "accurate"))
+    del pidx
+    torch.cuda.empty_cache()
+
+    # (5) the dry run, once on each mesh
+    for name, n, dev in (("card", 1, None), ("virtual4", 4, "cuda:0")):
+        t0 = time.perf_counter()
+        dryrun_multichip(n, device=dev)
+        say("parallel", stage="dryrun_multichip", mesh=name,
+            seconds=time.perf_counter() - t0)
+    say("parallel", batch_ms=json.dumps(ms), note="the virtual mesh's four "
+        "shards share one card and one stream: its times say nothing of a "
+        "speed-up on several cards")
+
+    # (6) the tools
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["quick", "1000"])
+        check(rc == 0, f"bench.cli quick: exit code {rc}")
+        lines = [ln for ln in out.getvalue().splitlines() if "recall@" in ln]
+        check(len(lines) == len(cli.QUICK_FAMILIES),
+              f"bench.cli quick printed {len(lines)} family lines")
+        for line in lines:
+            say("tools", cli_quick=json.dumps(" ".join(line.split())))
+
+        # a JSON corpus of 2,000 x 768 (past 4 MiB, so the native parser
+        # reads it), loaded, served by the shell, then parsed both ways
+        sub = data[:2000]
+        path = f"{tmp}/corpus.json"
+        with open(path, "w") as f:
+            json.dump({"metadata": {"source": "chip_smoke"}, "verses": [
+                {"id": f"v{i}", "text": f"verse {i} of the stand-in",
+                 "embedding": sub[i].tolist()} for i in range(len(sub))]}, f)
+        t1 = time.perf_counter()
+        parsed = native.parse_corpus(path)
+        native_s = time.perf_counter() - t1
+        check(parsed is not None, "the native parser did not read the corpus")
+        pairs, texts, _ = load_json_corpus(path)
+        with open(path) as f:
+            items = json.load(f)["verses"]
+        same = ([p[0] for p in pairs] == [it["id"] for it in items] ==
+                parsed[1]) and all(
+            (p[1] == np.asarray(it["embedding"], np.float32)).all()
+            for p, it in zip(pairs, items)) and \
+            texts == {it["id"]: it["text"] for it in items}
+        check(same, "load_json_corpus differs from the json module")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            shell = SearchShell(path)
+            seed = shell.find_seed("verse 17 of")
+            shell.query("verse 17 of", k=5)
+            shell.stats()
+        text = out.getvalue()
+        check(seed == "v17" and "seed: v17" in text and "%" in text
+              and "hnsw" in text, f"shell: seed {seed}, output {text[-300:]!r}")
+        say("tools", native_parse_seconds=native_s, rows=len(pairs),
+            loader_identical=same, shell_seed=seed,
+            shell_top=json.dumps(shell.index.search(
+                shell.data[17], 3)[0]["id"]))
+        del shell
+    say("tools", seconds=time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    say("parallel", launches=json.dumps(launches))
+    check(launches["hop_score"] > 0, "hop_score was not launched in phase 9")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1380,12 +1627,17 @@ def main() -> int:
     large_launches = large_phase(torch, served, data[:1024])
     say("large", seconds=time.perf_counter() - t8)
     del served
+    torch.cuda.empty_cache()
+    t9 = time.perf_counter()
+    parallel_launches = parallel_path(torch, data)
+    say("parallel", seconds=time.perf_counter() - t9)
     out = []
     for name in KERNELS:
         rec = records[name]
         rec["launches"] = (launches.get(name, 0) + api_launches.get(name, 0)
-                           + probe_launches[name] + large_launches[name])
-        check(rec["launches"] > 0, f"{name} was not launched in phases 4-8")
+                           + probe_launches[name] + large_launches[name]
+                           + parallel_launches[name])
+        check(rec["launches"] > 0, f"{name} was not launched in phases 4-9")
         out.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})

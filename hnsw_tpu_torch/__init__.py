@@ -1,9 +1,9 @@
 """hnsw_tpu_torch: the PyTorch / CUDA port of ``hnsw_tpu/`` for one NVIDIA H100.
 
 Laid out like ``hnsw_tpu/`` (types, config, ops, models, models/hnsw, io,
-api, bench), so each module's counterpart is found under the same name. It
-never imports JAX or the JAX package; the tests import both and hold the port
-against it.
+api, parallel, bench, apps, utils), so each module's counterpart is found
+under the same name. It never imports JAX or the JAX package; the tests
+import both and hold the port against it.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 The TPU's Pallas kernels on the main path are hand-written CUDA kernels in
@@ -48,6 +48,8 @@ from hnsw_tpu_torch.models import (  # noqa: E402
 )
 from hnsw_tpu_torch.models.base import ANNIndex  # noqa: E402
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Corpus", "Metric", "SearchResult", "Mode", "DEFAULTS",
     "build_index", "build_best_for_size",
@@ -59,4 +61,5 @@ __all__ = [
     "PartitionedHNSWIndex", "IVFHNSWIndex", "HybridLSHIndex", "PCAFIndex",
     "build_partitioned_hnsw", "build_ivf_hnsw_index",
     "FAMILIES",
+    "__version__",
 ]

@@ -4,8 +4,10 @@ A graph is this system's counterpart of a model's weights: serving cannot
 run without one. ``from_reference`` takes what an index of ``hnsw_tpu/``
 returns from ``to_state()`` (numpy arrays and params: for HNSW ``levels``,
 ``adj0``, ``adj_upper``, ``entry``, ...; for partitioned HNSW ``rows_p``,
-``adj0_p``, ...; for IVF-HNSW ``centroids``, ``medoids``, ``adj0``, ...;
-for IVF-FLAT and Lightning the partition table's ``perm``, ``starts``,
+``adj0_p``, ..., and ``vectors_p`` / ``v_sq_p`` when the caller adds them
+(the JAX index holds them, its ``to_state()`` leaves them out); for
+IVF-HNSW ``centroids``, ``medoids``, ``adj0``, ...; for IVF-FLAT and
+Lightning the partition table's ``perm``, ``starts``,
 ``lens`` and ``centroids``; for LSH ``proj`` and ``buckets``; for PCAF
 ``proj``) together with the vectors the index was built on, packs the
 vectors into the same ``Corpus`` layout, and returns the port's index of
@@ -62,6 +64,14 @@ def from_reference(vectors: np.ndarray, state: Dict[str, Any], *,
     if rows.size and int(rows.max()) >= corpus.n:
         raise ValueError(f"state names row {int(rows.max())} of "
                          f"{corpus.n} vectors")
+    if family == "partitioned_hnsw" and "vectors_p" in arrays:
+        want = rows.shape + (corpus.d_pad,)
+        if np.shape(arrays["vectors_p"]) != want or \
+                np.shape(arrays.get("v_sq_p")) != rows.shape:
+            raise ValueError(f"vectors_p / v_sq_p of shapes "
+                             f"{np.shape(arrays['vectors_p'])} / "
+                             f"{np.shape(arrays.get('v_sq_p'))} do not fit "
+                             f"rows_p {rows.shape} at {corpus.d_pad} dims")
     return INDEX_CLASSES[family].from_state(corpus, state)
 
 

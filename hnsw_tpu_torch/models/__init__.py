@@ -2,6 +2,7 @@
 reference aliases. Flat/exact (the recall ground truth), HNSW, partitioned
 HNSW, Lightning, IVF-FLAT, IVF-HNSW, multi-probe LSH and PCAF."""
 
+from hnsw_tpu_torch.models.base import ANNIndex
 from hnsw_tpu_torch.models.flat import FlatIndex, build_flat_index
 from hnsw_tpu_torch.models.hnsw import HNSWIndex, build_hnsw_index
 from hnsw_tpu_torch.models.ivf_flat import IVFFlatIndex, build_ivf_flat_index
@@ -37,6 +38,7 @@ INDEX_CLASSES = {
 }
 
 __all__ = [
+    "ANNIndex",
     "FlatIndex", "build_flat_index",
     "HNSWIndex", "build_hnsw_index",
     "IVFFlatIndex", "build_ivf_flat_index",

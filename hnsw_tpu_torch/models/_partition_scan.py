@@ -153,12 +153,25 @@ def probe_mask_from_centroids(queries, centroids, *, num_probes: int,
     return mask, probe_ids
 
 
-def scan_search(table_vectors, table_v_sq, table_perm, lens, probe_mask,
-                queries, *, k: int, metric: Metric, dedup: bool = False):
+def scan_search(table_vectors, table_v_sq, table_perm, starts, lens,
+                probe_mask, queries, *, k: int, cmax: int, metric: Metric,
+                dedup: bool = False):
     """Masked scan of every slab (dedup=True when the table has spill).
-    The slabs are the table's first sum(lens) rows, in cluster order.
-    Returns (dists [B, k], original rows [B, k] int32, -1 for missing)."""
+    The row tiles read the slabs as the table's first sum(lens) rows in
+    cluster order, so starts must be the exclusive cumulative sum of lens
+    and cmax at least max(lens); ValueError otherwise. Returns (dists
+    [B, k], original rows [B, k] int32, -1 for missing)."""
     metric = Metric.coerce(metric)
+    lens_h = lens.cpu().long()
+    want = torch.cumsum(lens_h, 0) - lens_h
+    if starts.shape != lens.shape or not torch.equal(starts.cpu().long(),
+                                                     want):
+        raise ValueError("starts is not the exclusive cumulative sum of "
+                         "lens: the slabs must lie back to back in "
+                         "cluster order")
+    if lens_h.numel() and cmax < int(lens_h.max()):
+        raise ValueError(f"cmax {cmax} < the largest slab "
+                         f"{int(lens_h.max())}")
     b = queries.shape[0]
     dev = queries.device
     q_sq = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
@@ -169,7 +182,7 @@ def scan_search(table_vectors, table_v_sq, table_perm, lens, probe_mask,
     # spilled tables hold a row in up to 2 slabs: carry 2k slots so that k
     # unique rows survive the dedupe
     kk = 2 * k if dedup else k
-    m = int(lens.sum())
+    m = int(lens_h.sum())
     owner = torch.repeat_interleave(
         torch.arange(lens.shape[0], device=dev), lens.long())
 

@@ -84,6 +84,14 @@ def _heuristic_impl(cand_ids, cand_d, pair_d, *, cap, keep_pruned=True,
     return (out, out_d) if return_d else out
 
 
+def heuristic_select(cand_ids, cand_d, pair_d, *, cap: int,
+                     keep_pruned: bool = True):
+    """The neighbour-selection heuristic over node tiles (see
+    _heuristic_impl)."""
+    return _heuristic_impl(cand_ids, cand_d, pair_d, cap=cap,
+                           keep_pruned=keep_pruned)
+
+
 def _pairwise_among_impl(vecs, sq, metric: Metric, precision="highest"):
     """Distances among gathered candidates. vecs: [T, K, D], sq: [T, K].
     Returns [T, K, K]."""
@@ -384,6 +392,29 @@ def finish_layer(dev, member_rows: np.ndarray) -> np.ndarray:
                     NONE).astype(np.int32)
 
 
+def build_layer(vectors, v_sq, member_rows: np.ndarray, *, cap: int,
+                k_cand: int, metric: Metric, tile: int = BUILD_TILE,
+                precision: str = "highest") -> np.ndarray:
+    """One layer's adjacency over member_rows, [ns, cap] of GLOBAL row ids
+    (-1 pad): in numpy at HOST_LAYER_MAX rows or fewer, else one
+    build_layer_dispatch. v_sq is unused, as in the reference: each path
+    takes the norms of its own member copy."""
+    ns = len(member_rows)
+    if ns <= 1:
+        return np.full((ns, cap), NONE, np.int32)
+    member_rows = np.asarray(member_rows, np.int32)
+    metric = Metric.coerce(metric)
+    if ns <= HOST_LAYER_MAX:
+        x = vectors[torch.from_numpy(member_rows.astype(np.int64))
+                    .to(vectors.device)].cpu().numpy()
+        loc = _build_layer_host(x, cap=cap, k_cand=k_cand, metric=metric)
+        return np.where(loc >= 0, member_rows[np.maximum(loc, 0)],
+                        NONE).astype(np.int32)
+    return finish_layer(*build_layer_dispatch(
+        vectors, member_rows, cap=cap, k_cand=k_cand, metric=metric,
+        tile=tile, precision=precision))
+
+
 def build_layers_stacked(vectors, members: list, *, cap: int, k_cand: int,
                          metric: Metric, precision: str = "highest") -> list:
     """Build one graph layer for MANY disjoint member sets (IVF-HNSW's
@@ -401,20 +432,8 @@ def build_layers_stacked(vectors, members: list, *, cap: int, k_cand: int,
         return [np.full((s, cap), NONE, np.int32) for s in sizes]
 
     if mx <= HOST_LAYER_MAX:
-        out = []
-        for mem in members:
-            mem = np.asarray(mem, np.int32)
-            if len(mem) <= 1:
-                out.append(np.full((len(mem), cap), NONE, np.int32))
-                continue
-            x = vectors[torch.from_numpy(mem.astype(np.int64))
-                        .to(vectors.device)].cpu().numpy()
-            loc = _build_layer_host(x, cap=cap,
-                                    k_cand=min(k_cand, len(mem) - 1),
-                                    metric=metric)
-            out.append(np.where(loc >= 0, mem[np.maximum(loc, 0)],
-                                NONE).astype(np.int32))
-        return out
+        return [build_layer(vectors, None, mem, cap=cap, k_cand=k_cand,
+                            metric=metric) for mem in members]
 
     pending = [build_layer_dispatch(vectors, mem, cap=cap, k_cand=k_cand,
                                     metric=metric, precision=precision)

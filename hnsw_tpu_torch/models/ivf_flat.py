@@ -83,8 +83,9 @@ class IVFFlatIndex(ANNIndex):
             self._last_dropped = dropped  # device scalar; read lazily
             return d, r
         return scan_search(
-            t.vectors, t.v_sq, t.perm, t.lens, mask, q,
-            k=k, metric=self.corpus.metric, dedup=self.spill > 0)
+            t.vectors, t.v_sq, t.perm, t.starts, t.lens, mask, q,
+            k=k, cmax=t.cmax, metric=self.corpus.metric,
+            dedup=self.spill > 0)
 
     def index_info(self) -> Dict[str, Any]:
         sizes = self.table.partition_sizes()

@@ -61,9 +61,9 @@ class LightningIndex(IVFFlatIndex):
             mask_np = np.zeros((b, kp), bool)
             np.put_along_axis(mask_np, sel, True, axis=1)
             mask = torch.from_numpy(mask_np).to(q.device)
-        return scan_search(
-            self.table.vectors, self.table.v_sq, self.table.perm,
-            self.table.lens, mask, q, k=k, metric=self.corpus.metric)
+        t = self.table
+        return scan_search(t.vectors, t.v_sq, t.perm, t.starts, t.lens, mask,
+                           q, k=k, cmax=t.cmax, metric=self.corpus.metric)
 
     def index_info(self) -> Dict[str, Any]:
         info = super().index_info()

@@ -41,9 +41,16 @@ class PartitionedHNSWIndex(ANNIndex):
 
     def __init__(self, corpus: Corpus, *, num_partitions: int,
                  rows_p, adj0_p, adj_upper_p, entries_p,
-                 m: int, m0: int, ef_construction: int, seed: int = 42):
+                 m: int, m0: int, ef_construction: int, seed: int = 42,
+                 vectors_p=None, v_sq_p=None):
+        """vectors_p / v_sq_p, the partition-stacked vectors and norms, are
+        stored as given (None when absent): only the sharded search reads
+        them (parallel/sharded.py), which forms them from the corpus when
+        they are None. This search runs on the globalized adjacency."""
         super().__init__(corpus)
         self.num_partitions = num_partitions
+        self.vectors_p = vectors_p       # [P, S, D] or None
+        self.v_sq_p = v_sq_p             # [P, S] or None
         self.rows_p = rows_p             # [P, S] global rows (-1 pad)
         self.adj0_p = adj0_p             # [P, S, M0] local ids
         self.adj_upper_p = adj_upper_p   # [P, L, S, M]
@@ -153,11 +160,14 @@ class PartitionedHNSWIndex(ANNIndex):
     @classmethod
     def from_state(cls, corpus: Corpus,
                    state: Dict[str, Any]) -> "PartitionedHNSWIndex":
+        """vectors_p / v_sq_p are carried when the arrays hold them."""
         p, a = state["params"], state["arrays"]
         dev = corpus.device
 
-        def arr(name):
-            return torch.from_numpy(np.array(a[name], dtype=np.int32)).to(dev)
+        def arr(name, dtype=np.int32):
+            if name not in a:
+                return None
+            return torch.from_numpy(np.array(a[name], dtype=dtype)).to(dev)
 
         return cls(
             corpus, num_partitions=int(p["num_partitions"]),
@@ -166,7 +176,9 @@ class PartitionedHNSWIndex(ANNIndex):
             entries_p=arr("entries_p"),
             m=int(p["M"]), m0=int(p["M0"]),
             ef_construction=int(p["ef_construction"]),
-            seed=int(p.get("seed", 42)))
+            seed=int(p.get("seed", 42)),
+            vectors_p=arr("vectors_p", np.float32),
+            v_sq_p=arr("v_sq_p", np.float32))
 
 
 def build_partitioned_hnsw(

@@ -30,11 +30,17 @@ class PCAFIndex(ANNIndex):
     family = "pcaf"
 
     def __init__(self, corpus: Corpus, *, proj, n_components: int,
-                 seed: int = 42):
+                 low_vectors=None, low_sq=None, seed: int = 42):
+        """low_vectors / low_sq (the projected corpus and its squared
+        norms) are computed from proj when absent."""
         super().__init__(corpus)
         self.proj = proj                                  # [D_pad, C_pad]
-        self.low_vectors = torch.matmul(corpus.vectors, proj)  # [N_pad, C_pad]
-        self.low_sq = torch.sum(self.low_vectors * self.low_vectors, dim=-1)
+        if low_vectors is None:
+            low_vectors = torch.matmul(corpus.vectors, proj)
+        if low_sq is None:
+            low_sq = torch.sum(low_vectors * low_vectors, dim=-1)
+        self.low_vectors = low_vectors                    # [N_pad, C_pad]
+        self.low_sq = low_sq                              # [N_pad]
         self.n_components = n_components
         self.seed = seed
 

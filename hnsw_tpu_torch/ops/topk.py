@@ -12,6 +12,11 @@ import torch
 from hnsw_tpu_torch.ops.distance import BIG
 
 
+def mask_invalid(dists: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """BIG where not valid."""
+    return torch.where(valid, dists, BIG)
+
+
 def top_k_ascending(dists: torch.Tensor, k: int):
     """Smallest-k along the last axis, ties lower index first.
     Returns (dists [.., k], idx [.., k] int64)."""

@@ -188,9 +188,9 @@ def test_scan_search_matches(corpora, metric, spill):
     jd, jr = jps.scan_search(jt.vectors, jt.v_sq, jt.perm, jt.starts,
                              jt.lens, mask, q, k=10, cmax=jt.cmax,
                              metric=jc.metric, dedup=spill)
-    td, tr = tps.scan_search(tt.vectors, tt.v_sq, tt.perm, tt.lens,
-                             _t(mask), _t(q), k=10, metric=metric,
-                             dedup=spill)
+    td, tr = tps.scan_search(tt.vectors, tt.v_sq, tt.perm, tt.starts,
+                             tt.lens, _t(mask), _t(q), k=10, cmax=tt.cmax,
+                             metric=metric, dedup=spill)
     _same_rows(jd, jr, td, tr, bf16=False, scale=_scale(data, metric))
 
 
@@ -202,9 +202,9 @@ def test_scan_search_bf16_table_matches(corpora):
     jd, jr = jps.scan_search(jt.vectors, jt.v_sq, jt.perm, jt.starts,
                              jt.lens, mask, q, k=10, cmax=jt.cmax,
                              metric=jc.metric, dedup=True)
-    td, tr = tps.scan_search(tt.vectors, tt.v_sq, tt.perm, tt.lens,
-                             _t(mask), _t(q), k=10, metric="cosine",
-                             dedup=True)
+    td, tr = tps.scan_search(tt.vectors, tt.v_sq, tt.perm, tt.starts,
+                             tt.lens, _t(mask), _t(q), k=10, cmax=tt.cmax,
+                             metric="cosine", dedup=True)
     _same_rows(jd, jr, td, tr, bf16=True)
 
 
@@ -279,8 +279,9 @@ def test_tie_across_two_clusters_keeps_the_reference_order(scan):
         jd, jr = jps.scan_search(jt.vectors, jt.v_sq, jt.perm, jt.starts,
                                  jt.lens, mask, q, k=5, cmax=jt.cmax,
                                  metric=jc.metric)
-        td, tr = tps.scan_search(tt.vectors, tt.v_sq, tt.perm, tt.lens,
-                                 _t(mask), _t(q), k=5, metric="cosine")
+        td, tr = tps.scan_search(tt.vectors, tt.v_sq, tt.perm, tt.starts,
+                                 tt.lens, _t(mask), _t(q), k=5,
+                                 cmax=tt.cmax, metric="cosine")
     else:
         jd, jr, td, tr, _ = _grouped(jc, jt, tt, q, ids, k=5, qcap=8,
                                      precision="highest")
