@@ -7,8 +7,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
   1. environment: the card's name and power limit (nvidia-smi), torch, CUDA;
   2. build the kernels of hnsw_tpu_torch/csrc with nvcc (sm_90a);
   3. hold each kernel against its plain PyTorch version on the card at the
-     shapes of the main path, and time kernel, plain version and a PyTorch
-     yardstick that the port never calls;
+     shapes of the main path (hop_score at its three hops: phase 4's, hop
+     width 256, and phase 8's 128-dim pack), and time kernel, plain version
+     and a PyTorch yardstick that the port never calls (the hop kernels
+     also on rotated operands past the L2, with the wrapper's host
+     microseconds and the bf16 kernel's shared memory per block);
   4. the main path at full width: a 31,173 x 768 embedding-like corpus
      (cosine), the exact f32 flat index as ground truth, the bf16 and int8
      flat scans, the HNSW build (M=16) and HNSW serving with the bf16 and
@@ -44,7 +47,8 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      seconds of each stage, the builder's plan and the peak memory
      printed), serving at B=1,024 in four modes (recall@10, bar 0.95 at
      accurate; qps_device from the harness), and hop_score held against its
-     plain version on the 128-dim pack; then the builder on the card
+     plain version on the 128-dim pack and timed there at B=1,024 on the
+     rows the searches returned; then the builder on the card
      against the CPU at 8,192 x 768, and phase 4's HNSW index served with
      the "sort", "bitonic" and "approx" beam merges;
   9. the multi-device layer and the tools (parallel_path), on phase 4's
@@ -105,10 +109,11 @@ LARGE_BUILD = dict(M=16, hierarchy=False, pack_dim=128,
 
 
 # the ptxas entry of each kernel: its source and a piece of its mangled name
-# (<length><name> and the template arguments; for hop_score_int8 the
-# single-pass instantiation, which the main path's D = 768 runs)
+# (<length><name> and the template arguments; for hop_score the
+# instantiation of three chunks a lane, which the main path's D = 768 runs,
+# and for hop_score_int8 the single-pass one)
 KERNEL_ENTRIES = {
-    "hop_score": ("hop.cu", "15hop_bf16_kernel"),
+    "hop_score": ("hop.cu", "20hop_bf16_ring_kernelILi3E"),
     "hop_score_int8": ("hop.cu", "15hop_int8_kernelILb0E"),
     "bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb0E"),
     "int8_bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb1E"),
@@ -204,19 +209,33 @@ def check(cond: bool, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def check_hop_kernels(torch, records):
-    from hnsw_tpu_torch.bench.kernels import HOP_SHAPE, burst_ms, hop_operands
+    """B1 at the main path's three hops (bench/kernels.py, HOP_SHAPES: (a)
+    phase 4's hop, (b) hop width 256, (c) the 500,000-row 128-dim pack) and
+    B2 at (a): each held against its plain version, then timed as one call
+    and 20 back to back, on one (queries, sel) draw and cycling through
+    HOP_ROTATIONS draws (past the L2), with the wrapper's host microseconds
+    per call. The records hold (a)."""
+    from hnsw_tpu_torch.bench.kernels import (HOP_ROTATIONS, HOP_SHAPES,
+                                              hop_bytes, hop_library,
+                                              hop_operands, hop_readings)
     from hnsw_tpu_torch.ops import hop
 
-    b, e, m0, d, n_pad = (HOP_SHAPE[k] for k in ("b", "e", "m0", "d", "n_pad"))
-    x = hop_operands(SEED)
-    queries, sel, pack, codes = x["queries"], x["sel"], x["pack"], x["codes"]
-    uniq = int(torch.unique(torch.clamp(sel, min=0)).numel())
-    rows = torch.clamp(sel, min=0).long()
-
-    for name, tensor, fn, plain, esize in (
-            ("hop_score", pack, hop.hop_score, hop.hop_score_plain, 2),
-            ("hop_score_int8", codes, hop.hop_score_int8,
-             hop.hop_score_int8_plain, 1)):
+    pack = None
+    for name, key in (("hop_score", "a"), ("hop_score_int8", "a"),
+                      ("hop_score", "b"), ("hop_score", "c")):
+        shape = HOP_SHAPES[key]
+        int8 = name == "hop_score_int8"
+        if pack is not None and pack.shape != (
+                shape["n_pad"], shape["m0"], shape["d"]):
+            pack = None
+            torch.cuda.empty_cache()
+        x = hop_operands(SEED, shape=shape, pack=pack, codes=int8,
+                         rotations=HOP_ROTATIONS)
+        pack = x["pack"]
+        tensor = x["codes"] if int8 else pack
+        fn = hop.hop_score_int8 if int8 else hop.hop_score
+        plain = hop.hop_score_int8_plain if int8 else hop.hop_score_plain
+        queries, sel = x["queries"], x["sel"]
         got = fn(tensor, queries, sel)
         want = plain(tensor, queries, sel)
         torch.cuda.synchronize()
@@ -227,32 +246,36 @@ def check_hop_kernels(torch, records):
         errs = [float((a - w).abs().max()) for a, w in zip(got, want)]
         for err, w in zip(errs, want):
             check(err <= 1e-4 * float(w.abs().max()),
-                  f"{name} disagrees with its plain version: {errs}")
-        ms = time_ms(lambda: fn(tensor, queries, sel))
-        # the wrapper's host work before the launch is a large part of ms;
-        # back to back, the card stays busy and the kernel's time shows
-        b2b_ms = burst_ms(lambda: fn(tensor, queries, sel))
+                  f"{name} ({key}) disagrees with its plain version: {errs}")
+        del got, want
+        outs = 1 if int8 else 2
+        t = hop_readings(fn, tensor, x["draws"], outs)
         plain_ms = time_ms(lambda: plain(tensor, queries, sel), reps=5)
-        qb = queries.to(torch.bfloat16)
-        lib_ms = time_ms(lambda: torch.einsum(
-            "bd,bemd->bem", qb, tensor[rows].to(torch.bfloat16)), reps=5)
-        outs = 2 if name == "hop_score" else 1
-        nbytes = uniq * m0 * d * esize + b * d * 4 + b * e * 4 \
-            + outs * b * e * m0 * 4
-        ops = 2 * outs * b * e * m0 * d
-        bms, by = bound(nbytes, ops, BF16_OPS_S)
-        say("kernel", name=name, shape=f"B={b},E={e},M0={m0},D={d},"
-            f"N_pad={n_pad}", max_abs_err=max(errs),
-            tol="1e-4*max|plain|", kernel_ms=ms, back_to_back_ms=b2b_ms,
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=by,
-            **ptxas_fields(name))
-        records[name] = dict(
-            name=name, route="cuda", source="hnsw_tpu_torch/csrc/hop.cu",
-            replaces=("hnsw_tpu/ops/pallas_hop.py:152" if name == "hop_score"
-                      else "hnsw_tpu/ops/pallas_hop.py:276"),
-            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=lib_ms)
-    del x, pack, codes
+        lib_ms = time_ms(hop_library(tensor, queries, sel), reps=5)
+        bms, by = bound(hop_bytes(tensor, queries, sel, outs),
+                        2 * outs * sel.numel() * shape["m0"] * shape["d"],
+                        BF16_OPS_S)
+        ring = {} if int8 else dict(smem_bytes_per_block=hop.RING_SMEM_BYTES)
+        say("kernel", name=name, shape=f"({key}) B={shape['b']},E={shape['e']},"
+            f"M0={shape['m0']},D={shape['d']},N_pad={shape['n_pad']}",
+            max_abs_err=max(errs), tol="1e-4*max|plain|",
+            kernel_ms=t["ms"], back_to_back_ms=t["back_to_back_ms"],
+            rotated_ms=t["rotated_ms"],
+            rotated_back_to_back_ms=t["rotated_back_to_back_ms"],
+            host_us=t["host_us"], plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=bms, bound_by=by,
+            rotated_bound_ms=t["rotated_bound_ms"],
+            **ptxas_fields(name), **ring)
+        if key == "a":
+            records[name] = dict(
+                name=name, route="cuda", source="hnsw_tpu_torch/csrc/hop.cu",
+                replaces=("hnsw_tpu/ops/pallas_hop.py:276" if int8
+                          else "hnsw_tpu/ops/pallas_hop.py:152"),
+                max_abs_err=max(errs), ms=t["ms"], plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        del x, tensor, queries, sel
+    del pack
+    torch.cuda.empty_cache()
 
 
 def check_scan_kernels(torch, data, records):
@@ -1167,6 +1190,7 @@ def large_path(torch, n: int = LARGE_ROWS, refine_rounds: int = 2):
     import logging
 
     from hnsw_tpu_torch.bench import run_search_benchmark
+    from hnsw_tpu_torch.bench.kernels import HOP_ROTATIONS, hop_readings
     from hnsw_tpu_torch.io.datagen import generate_vectors
     from hnsw_tpu_torch.models import FlatIndex, build_hnsw_index
     from hnsw_tpu_torch.ops import hop
@@ -1244,6 +1268,7 @@ def large_path(torch, n: int = LARGE_ROWS, refine_rounds: int = 2):
     fn = hop.hop_score_int8 if int8 else hop.hop_score
     plain = hop.hop_score_int8_plain if int8 else hop.hop_score_plain
     check(fn.launches > 0, f"{n} rows: {name} was not launched")
+    served_launches = fn.launches
     qlp = torch.matmul(q[:64], hnsw._proj).contiguous()
     sel = r[:64, :4].to(torch.int32).contiguous()
     got, want = fn(pack, qlp, sel), plain(pack, qlp, sel)
@@ -1259,8 +1284,26 @@ def large_path(torch, n: int = LARGE_ROWS, refine_rounds: int = 2):
             pack.shape[1], pack.shape[2], pack.shape[0]),
         pack_gib=pack.numel() * pack.element_size() / 2 ** 30,
         max_abs_err=max(errs), tol="1e-4*max|plain|",
-        launches_serving=fn.launches)
-    del hnsw, pack, corpus
+        launches_serving=served_launches)
+
+    # (e) the hop of this pack timed at its serving shape, B = 1,024 and
+    # E = 4: the first four result rows of 1,024 corpus rows, over
+    # HOP_ROTATIONS batches of them (one batch's blocks, about 35 MB at
+    # D = 128, stay in the L2 across calls on the same operands)
+    draws = []
+    for k in range(HOP_ROTATIONS):
+        qk = corpus.pad_queries(data[1024 * k:1024 * (k + 1)])
+        _, rk = hnsw.search_batch(qk, K, best)
+        draws.append((torch.matmul(qk, hnsw._proj).contiguous(),
+                      rk[:, :4].to(torch.int32).contiguous()))
+    outs = 1 if int8 else 2
+    t = hop_readings(fn, pack, draws, outs)
+    say("large", kernel=name, shape="B=1024,E=4,M0={},D={},N_pad={}".format(
+        pack.shape[1], pack.shape[2], pack.shape[0]), operands="served rows",
+        **t)
+    # the comparison, the timing and their searches are not the path's
+    fn.launches = served_launches
+    del hnsw, pack, corpus, draws
     torch.cuda.empty_cache()
     return data
 

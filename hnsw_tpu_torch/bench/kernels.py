@@ -1,7 +1,8 @@
 """Operands and calls of the flat-scan kernels and their matmul floors at the
 probe scripts' shapes, and of the two hop kernels at the main path's hop
-shape, for the scripts that time them on the card (``chip_smoke.py``,
-``scripts/probe_torch.py``, ``scripts/time_bank_kernels.py``).
+shapes, for the scripts that time them on the card (``chip_smoke.py``,
+``scripts/probe_torch.py``, ``scripts/time_bank_kernels.py``,
+``scripts/hop_ablate.py``).
 
 The corpus is packed for cosine and padded as the scans pad it: bf16 to
 31,744 rows (``bucket_topk``, ``exact_topk_sweep``), and bf16 and int8 to
@@ -13,7 +14,9 @@ scan calls also time a tree that has no floors.
 
 from __future__ import annotations
 
+import itertools
 import statistics
+import time
 from typing import Callable, NamedTuple
 
 import torch
@@ -21,9 +24,22 @@ import torch
 # the int8 floors' corpus tile (INT8_NT of the TPU scans)
 FLOOR_NT = 2048
 BF16_PACK = 31744
-# one hop of the main path: B queries, E selected blocks of M0 rows, D, and
-# the packed blocks of the 31,173-row corpus
-HOP_SHAPE = dict(b=1024, e=4, m0=32, d=768, n_pad=31176)
+# the hops of the main path: B queries, E selected blocks of M0 rows, D, and
+# the packed blocks. (a) phase 4's HNSW serving of the 31,173-row corpus;
+# (b) hop width 256 (E = 8), partitioned HNSW and IVF-HNSW (phases 6 and 9);
+# (c) phase 8's 500,000-row index served from its 128-dim pack (4.1 GB)
+HOP_SHAPES = {
+    "a": dict(b=1024, e=4, m0=32, d=768, n_pad=31176),
+    "b": dict(b=1024, e=8, m0=32, d=768, n_pad=31176),
+    "c": dict(b=1024, e=4, m0=32, d=128, n_pad=500000),
+}
+HOP_SHAPE = HOP_SHAPES["a"]
+# independent (queries, sel) draws a rotated timing cycles through: one call
+# at (c) reads about 35 MB, which the 50 MB L2 keeps for the next call on
+# the same operands; eight draws read well over 50 MB at every shape
+HOP_ROTATIONS = 8
+# HBM3 bytes/s of the H100 SXM (NVIDIA data sheet), for the hop bounds
+HBM_BYTES_S = 3.35e12
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -166,20 +182,31 @@ def floor_calls(x) -> dict:
     }
 
 
-def hop_operands(seed: int = 42, device="cuda") -> dict:
-    """Random operands of one hop at HOP_SHAPE: queries [B, D] f32, selected
-    blocks [B, E] int32 (-1 included), a bf16 pack and int8 codes
-    [N_pad, M0, D]."""
-    b, e, m0, d, n_pad = (HOP_SHAPE[k] for k in ("b", "e", "m0", "d", "n_pad"))
+def hop_operands(seed: int = 42, device="cuda", shape: dict = HOP_SHAPE,
+                 pack=None, codes: bool = True,
+                 rotations: int = 1) -> dict:
+    """Random operands of one hop at `shape`: queries [B, D] f32, selected
+    blocks [B, E] int32 (-1 included), a bf16 pack and (with `codes`) int8
+    codes [N_pad, M0, D]; `pack` reuses a pack of the same N_pad, M0 and D.
+    `draws` holds `rotations` (queries, sel) pairs, the first of them
+    (queries, sel)."""
+    b, e, m0, d, n_pad = (shape[k] for k in ("b", "e", "m0", "d", "n_pad"))
     g = torch.Generator(device=device).manual_seed(seed)
     queries = torch.randn(b, d, generator=g, device=device)
     sel = torch.randint(-1, n_pad, (b, e), generator=g, device=device,
                         dtype=torch.int32)
-    pack = torch.randn(n_pad, m0, d, generator=g,
-                       device=device).to(torch.bfloat16)
-    codes = torch.randint(-127, 128, (n_pad, m0, d), generator=g,
-                          device=device, dtype=torch.int8)
-    return dict(queries=queries, sel=sel, pack=pack, codes=codes)
+    if pack is None:
+        pack = torch.randn(n_pad, m0, d, generator=g,
+                           device=device).to(torch.bfloat16)
+    out = dict(queries=queries, sel=sel, pack=pack)
+    if codes:
+        out["codes"] = torch.randint(-127, 128, (n_pad, m0, d), generator=g,
+                                     device=device, dtype=torch.int8)
+    out["draws"] = [(queries, sel)] + [
+        (torch.randn(b, d, generator=g, device=device),
+         torch.randint(-1, n_pad, (b, e), generator=g, device=device,
+                       dtype=torch.int32)) for _ in range(rotations - 1)]
+    return out
 
 
 def hop_calls(x) -> dict:
@@ -191,3 +218,54 @@ def hop_calls(x) -> dict:
         "hop_score_int8": lambda: hop.hop_score_int8(x["codes"], x["queries"],
                                                      x["sel"]),
     }
+
+
+def hop_library(tensor, queries, sel):
+    """The hop's yardstick: the blocks gathered by one indexing call and
+    scored by one bf16 einsum (no squared norms), as a callable."""
+    rows = torch.clamp(sel, min=0).long()
+    qb = queries.to(torch.bfloat16)
+    return lambda: torch.einsum("bd,bemd->bem", qb,
+                                tensor[rows].to(torch.bfloat16))
+
+
+def hop_bytes(pack, queries, sel, outs: int) -> int:
+    """Bytes one hop must move: each distinct selected block once, the
+    queries, the rows and `outs` f32 outputs of [B, E*M0]."""
+    _, m0, d = pack.shape
+    b, e = sel.shape
+    uniq = int(torch.unique(torch.clamp(sel, min=0)).numel())
+    return (uniq * m0 * d * pack.element_size() + b * d * 4 + b * e * 4
+            + outs * b * e * m0 * 4)
+
+
+def hop_readings(fn, pack, draws, outs: int, host_calls: int = 1000) -> dict:
+    """A hop wrapper `fn(pack, queries, sel)` timed on the card: one call
+    (ms) and one of 20 back to back (back_to_back_ms) on the first draw,
+    the same two cycling through every draw (rotated_*: the working set
+    exceeds L2), the host microseconds of one call (perf_counter around
+    `host_calls` calls with no sync), and each reading's bound from its
+    bytes over HBM_BYTES_S (rotated: the mean over the draws)."""
+    q, s = draws[0]
+    ring = itertools.cycle(draws)
+
+    def same():
+        return fn(pack, q, s)
+
+    def rotated():
+        return fn(pack, *next(ring))
+
+    same()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(host_calls):
+        same()
+    host_us = (time.perf_counter() - t0) * 1e6 / host_calls
+    torch.cuda.synchronize()
+    nbytes = [hop_bytes(pack, dq, ds, outs) for dq, ds in draws]
+    return dict(
+        ms=median_ms(same, reps=30), back_to_back_ms=burst_ms(same),
+        rotated_ms=median_ms(rotated, reps=30),
+        rotated_back_to_back_ms=burst_ms(rotated, calls=3 * len(draws)),
+        host_us=host_us, bound_ms=nbytes[0] / HBM_BYTES_S * 1e3,
+        rotated_bound_ms=statistics.mean(nbytes) / HBM_BYTES_S * 1e3)

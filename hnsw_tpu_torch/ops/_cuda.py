@@ -156,7 +156,12 @@ def library(src: str) -> ctypes.CDLL:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of `device` as an address: PyTorch's raw lookup,
+    without the Stream object that torch.cuda.current_stream builds (about
+    0.1 us against 3 us a call on the card's host)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(code: int, name: str) -> None:

@@ -11,9 +11,16 @@ kernels and ``chip_smoke.py`` holds the CUDA kernels against.
 The TPU version pads the batch to strips of 8 and checks a VMEM budget
 (``hop_score_eligible``); the CUDA kernel takes any B, E and M0 and any D
 that is a multiple of 16, so it has no eligibility test.
+
+The hop loop waits on the host every hop, so the card waits through each
+wrapper's host work: the checks test one combined condition per tensor and
+build a message only when one fails, the outputs of ``hop_score`` are two
+views of one allocation, and the C entry points are looked up once.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -43,23 +50,36 @@ def hop_score_int8_plain(codes, queries, sel_rows):
 
 
 def _check(pack, queries, sel_rows, dtype):
-    _cuda.require(pack.dtype == dtype and pack.ndim == 3,
-                  f"pack must be {dtype} [N_pad, M0, D], got {pack.dtype} "
-                  f"{tuple(pack.shape)}")
-    _cuda.require(queries.dtype == torch.float32 and queries.ndim == 2
-                  and queries.shape[1] == pack.shape[2],
-                  f"queries must be float32 [B, {pack.shape[2]}], got "
-                  f"{queries.dtype} {tuple(queries.shape)}")
-    _cuda.require(sel_rows.dtype == torch.int32 and sel_rows.ndim == 2
-                  and sel_rows.shape[0] == queries.shape[0],
-                  f"sel_rows must be int32 [B, E], got {sel_rows.dtype} "
-                  f"{tuple(sel_rows.shape)}")
-    _cuda.require(pack.shape[2] % 16 == 0, "D must be a multiple of 16")
-    for t in (pack, queries, sel_rows):
-        _cuda.require(t.device == pack.device and t.is_cuda,
-                      "all tensors must be on one CUDA device")
-        _cuda.require(t.is_contiguous(), "tensors must be contiguous")
-        _cuda.require(t.data_ptr() % 16 == 0, "tensors must be 16-byte aligned")
+    """Raise ValueError unless the kernel takes these operands. The passing
+    path tests one combined condition per tensor and formats nothing."""
+    card = pack.get_device()          # -1 on the CPU
+    if not (pack.dtype == dtype and pack.dim() == 3 and card >= 0
+            and pack.shape[2] % 16 == 0 and pack.is_contiguous()
+            and pack.data_ptr() % 16 == 0) or not (
+            queries.dtype == torch.float32 and queries.dim() == 2
+            and queries.shape[1] == pack.shape[2]
+            and queries.get_device() == card and queries.is_contiguous()
+            and queries.data_ptr() % 16 == 0) or not (
+            sel_rows.dtype == torch.int32 and sel_rows.dim() == 2
+            and sel_rows.shape[0] == queries.shape[0]
+            and sel_rows.get_device() == card and sel_rows.is_contiguous()
+            and sel_rows.data_ptr() % 16 == 0):
+        got = "; ".join(
+            f"{name} {t.dtype} {tuple(t.shape)} on {t.device}, contiguous "
+            f"{t.is_contiguous()}, address {t.data_ptr():#x}"
+            for name, t in (("pack", pack), ("queries", queries),
+                            ("sel_rows", sel_rows)))
+        raise ValueError(
+            f"the hop kernel takes pack {dtype} [N_pad, M0, D] with D a "
+            "multiple of 16, queries float32 [B, D] and sel_rows int32 "
+            "[B, E], contiguous, 16-byte aligned, on one CUDA device; got "
+            + got)
+
+
+@functools.cache
+def _entry(name):
+    """The C entry point `name` of hop.cu (built on first use)."""
+    return getattr(_cuda.library("hop.cu"), name)
 
 
 def hop_score(nbr_pack, queries, sel_rows):
@@ -73,9 +93,9 @@ def hop_score(nbr_pack, queries, sel_rows):
     _check(nbr_pack, queries, sel_rows, torch.bfloat16)
     n_pad, m0, d = nbr_pack.shape
     b, e = sel_rows.shape
-    dots = torch.empty((b, e * m0), dtype=torch.float32, device=nbr_pack.device)
-    csq = torch.empty_like(dots)
-    code = _cuda.library("hop.cu").hop_score_bf16(
+    dots, csq = nbr_pack.new_empty((2, b, e * m0),
+                                   dtype=torch.float32).unbind(0)
+    code = _entry("hop_score_bf16")(
         nbr_pack.data_ptr(), queries.data_ptr(), sel_rows.data_ptr(),
         dots.data_ptr(), csq.data_ptr(), b, e, m0, d, n_pad,
         _cuda.stream_ptr(nbr_pack.device))
@@ -93,14 +113,20 @@ def hop_score_int8(codes, queries, sel_rows):
     _check(codes, queries, sel_rows, torch.int8)
     n_pad, m0, d = codes.shape
     b, e = sel_rows.shape
-    dots = torch.empty((b, e * m0), dtype=torch.float32, device=codes.device)
-    code = _cuda.library("hop.cu").hop_score_int8(
+    dots = codes.new_empty((b, e * m0), dtype=torch.float32)
+    code = _entry("hop_score_int8")(
         codes.data_ptr(), queries.data_ptr(), sel_rows.data_ptr(),
         dots.data_ptr(), b, e, m0, d, n_pad, _cuda.stream_ptr(codes.device))
     _cuda.check(code, "hop_score_int8")
     hop_score_int8.launches += 1
     return dots
 
+
+# the bf16 kernel's dynamic shared memory per block: csrc/hop.cu's ring of
+# kStages = 16 stages of kStageBytes = 12,288, a full and an empty mbarrier
+# each, and 16 zero bytes (tests/test_torch_hop_plan.py holds it to the
+# source)
+RING_SMEM_BYTES = 16 * (12288 + 2 * 8) + 16
 
 # launch counts: incremented where a kernel is launched, nowhere else
 hop_score.launches = 0

@@ -44,26 +44,58 @@ def recall(rows, exact_rows) -> float:
     return float(hit.float().sum(-1).mean()) / exact_rows.shape[1]
 
 
-def test_hop_kernels_match_plain_versions(cuda_device):
-    g = torch.Generator(device="cpu").manual_seed(0)
-    for b, e, m0, d, n in ((5, 3, 8, 128, 64), (300, 4, 32, 768, 2000),
-                           (1, 1, 7, 16, 3)):
-        pack = torch.randn(n, m0, d, generator=g).to(torch.bfloat16)
-        codes = torch.randint(-127, 128, (n, m0, d), generator=g,
-                              dtype=torch.int8)
-        q = torch.randn(b, d, generator=g)
-        sel = torch.randint(-1, n, (b, e), generator=g, dtype=torch.int32)
-        args = [t.to(cuda_device) for t in (pack, q, sel)]
-        before = hop.hop_score.launches
-        kd, kc = hop.hop_score(*args)
-        assert hop.hop_score.launches == before + 1
-        pd, pc = hop.hop_score_plain(*args)
+# (B, E, M0, D, N_pad): B = 1; B < 132 SMs; B * E groups far above the
+# persistent blocks, so each walks many and the 16-stage ring wraps; E * M0
+# not a multiple of the rows a warp-step takes (M0 = 7, 9, 11); D = 16
+# (16 rows a warp-step), 128 (two), 768 (three chunks a lane), 1,536 (the
+# query read per chunk), 2,064 (two rows of 4,128 bytes a 12,288-byte
+# stage, 129 chunks: the last lane group partly idle) and 6,160 and 16,384
+# (a row of 12,320 / 32,768 bytes, longer than a stage: in two and three
+# pieces); M0 = 96 at D = 128 (a block of 24 KiB in two stages of 48 rows)
+HOP_SHAPES = [(1, 4, 32, 768, 64), (5, 3, 8, 128, 64), (300, 4, 32, 768, 2000),
+              (1, 1, 7, 16, 3), (37, 3, 7, 768, 50), (5, 2, 9, 128, 50),
+              (3, 5, 11, 1536, 50), (2, 2, 5, 2064, 50), (4, 1, 3, 16, 50),
+              (1000, 8, 32, 128, 4000), (130, 4, 96, 128, 300),
+              (3, 2, 3, 6160, 20), (2, 2, 2, 16384, 10)]
+
+
+@pytest.mark.parametrize("b,e,m0,d,n", HOP_SHAPES)
+def test_hop_kernels_match_plain_versions(b, e, m0, d, n, cuda_device):
+    """hop_score at each shape within 1e-4 of the largest plain dot and
+    squared norm (f32 sums of exact products in another order), and up to
+    D = 768 also element by element as before (dots rtol 1e-5, atol 1e-3;
+    norms rtol 1e-5), with rows -1 (row 0) and >= N_pad (the last row), one
+    launch per call, and two calls giving the same bits; hop_score_int8 on
+    the same rows (up to D = 768 also rtol 1e-5, atol 5e-2)."""
+    g = torch.Generator(device="cpu").manual_seed(b * 7919 + d)
+    pack = torch.randn(n, m0, d, generator=g).to(torch.bfloat16)
+    q = torch.randn(b, d, generator=g)
+    sel = torch.randint(-1, n, (b, e), generator=g, dtype=torch.int32)
+    sel[0, 0] = -1
+    sel[-1, -1] = n + 7
+    args = [t.to(cuda_device) for t in (pack, q, sel)]
+    before = hop.hop_score.launches
+    kd, kc = hop.hop_score(*args)
+    assert hop.hop_score.launches == before + 1
+    assert kd.shape == kc.shape == (b, e * m0)
+    clamped = torch.clamp(args[2], max=n - 1)
+    pd, pc = hop.hop_score_plain(args[0], args[1], clamped)
+    assert float((kd - pd).abs().max()) <= 1e-4 * float(pd.abs().max())
+    assert float((kc - pc).abs().max()) <= 1e-4 * float(pc.abs().max())
+    if d <= 768:
         np.testing.assert_allclose(kd.cpu(), pd.cpu(), rtol=1e-5, atol=1e-3)
         np.testing.assert_allclose(kc.cpu(), pc.cpu(), rtol=1e-5)
-        args[0] = codes.to(cuda_device)
-        np.testing.assert_allclose(hop.hop_score_int8(*args).cpu(),
-                                   hop.hop_score_int8_plain(*args).cpu(),
-                                   rtol=1e-5, atol=5e-2)
+    kd2, kc2 = hop.hop_score(*args)
+    assert torch.equal(kd, kd2) and torch.equal(kc, kc2)
+    if d <= 2064:
+        codes = torch.randint(-127, 128, (n, m0, d), generator=g,
+                              dtype=torch.int8).to(cuda_device)
+        ki = hop.hop_score_int8(codes, args[1], args[2])
+        pi = hop.hop_score_int8_plain(codes, args[1], clamped)
+        assert float((ki - pi).abs().max()) <= 1e-4 * float(pi.abs().max())
+        if d <= 768:
+            np.testing.assert_allclose(ki.cpu(), pi.cpu(), rtol=1e-5,
+                                       atol=5e-2)
 
 
 def test_hop_kernel_refuses_what_it_cannot_take(cuda_device):
