@@ -16,6 +16,16 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      (cosine), the exact f32 flat index as ground truth, the bf16 and int8
      flat scans, the HNSW build (M=16) and HNSW serving with the bf16 and
      the int8 neighbour pack;
+  4b. the search as one device program (device_loop_path), on phase 4's
+     graph: the descent kernel (greedy_descent, D1) against its plain
+     version from the graph's entry for 1,024 queries (bf16 shadow, cosine;
+     f32 corpus, euclidean; endpoints identical >= 0.999, steps per query,
+     ms, bound and yardstick); HNSWIndex's search replayed from its
+     captured CUDA graph against the eager sync-free search (bf16 and int8
+     packs, sampled and hierarchy entries, B=1,024 and 32; rows and hop
+     counts identical, phase 4's bars at balanced B=1,024), IVF-HNSW and
+     the entry() twin captured and replayed against their eager runs, each
+     with the device's idle share, and hops against max_hops;
   5. the API path at full width (hnsw_tpu_torch.build_index, save_index,
      load_index, Index): flat indexes with scan_kernel "sweep" (bf16, int8)
      and "packed" (int8), the packed DOT guard on an unnormalized corpus,
@@ -68,9 +78,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      and one stream, so its times say nothing of a speed-up on several
      cards.
 Phase 3 prints each kernel's ptxas registers and spill bytes on its [kernel]
-lines. Phases 4, 5, 6, 8 and 9 each zero the launch counts just before and
-read them just after; each must have run its kernels, and all eleven
-together.
+lines. Phases 4, 4b, 5, 6, 8 and 9 each zero the launch counts just before
+and read them just after; each must have run its kernels, and all twelve
+together. A search replayed from a CUDA graph counts the launches the graph
+holds (utils/graphs.py).
 Then one
 JSON line of per-kernel records, and as the last line
 {"ok": true, "device": {...}}.
@@ -97,7 +108,8 @@ INT8_OPS_S = 1979e12
 N, DIM, SEED = 31173, 768, 42
 KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
            "exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk",
-           "mm_only", "mm_only_kmajor", "matmul_only", "matmul_min")
+           "mm_only", "mm_only_kmajor", "matmul_only", "matmul_min",
+           "greedy_descent")
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
@@ -111,7 +123,8 @@ LARGE_BUILD = dict(M=16, hierarchy=False, pack_dim=128,
 # the ptxas entry of each kernel: its source and a piece of its mangled name
 # (<length><name> and the template arguments; for hop_score the
 # instantiation of three chunks a lane, which the main path's D = 768 runs,
-# and for hop_score_int8 the single-pass one)
+# for hop_score_int8 the single-pass one, and for greedy_descent the bf16
+# cosine one of three chunks a lane)
 KERNEL_ENTRIES = {
     "hop_score": ("hop.cu", "20hop_bf16_ring_kernelILi3E"),
     "hop_score_int8": ("hop.cu", "15hop_int8_kernelILb0E"),
@@ -125,6 +138,8 @@ KERNEL_ENTRIES = {
     "mm_only_kmajor": ("probes.cu", "13colsum_kernelILb1E"),
     "matmul_only": ("probes.cu", "16last_tile_kernelILb0E"),
     "matmul_min": ("probes.cu", "16last_tile_kernelILb1E"),
+    "greedy_descent": ("descent.cu",
+                       "14descent_kernelI13__nv_bfloat16Li0ELi3E"),
 }
 
 
@@ -731,6 +746,242 @@ def main_path(torch, data):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the search as one device program
+# ---------------------------------------------------------------------------
+
+def descent_bytes(torch, adj_upper, vectors, visits, b: int) -> int:
+    """Bytes the walk must read once: the adjacency rows of the distinct
+    (layer, row) neighbourhoods its steps scored, the distinct neighbour
+    rows and their norms, and the queries, norms and walk states in and
+    out."""
+    n_pad, m = adj_upper.shape[1], adj_upper.shape[2]
+    keys = torch.unique(torch.cat([l * n_pad + rows.long()
+                                   for l, rows in visits]))
+    nb = adj_upper[keys // n_pad, keys % n_pad]
+    rows = torch.unique(nb[nb >= 0])
+    d = vectors.shape[1]
+    return (keys.numel() * m * 4 + rows.numel() * (d * vectors.element_size()
+                                                   + 4)
+            + b * (d * 4 + 4 + 8 + 8))
+
+
+def check_descent_kernel(torch, index, q, records):
+    """D1 against its plain version on phase 4's graph at full width: every
+    query walks from the graph's entry, with the bf16 shadow (cosine, the
+    main path's) and with the f32 corpus (euclidean). Launches made here
+    are not counted."""
+    from hnsw_tpu_torch.ops import descent
+    from hnsw_tpu_torch.ops.distance import shadow_score
+
+    g, corpus = index.graph, index.corpus
+    b = q.shape[0]
+    q_sq = (q * q).sum(-1)
+    upper = g.adj_upper
+    for metric, vectors in (("cosine", corpus.vectors.to(torch.bfloat16)),
+                            ("euclidean", corpus.vectors)):
+        launches = descent.greedy_descent.launches
+        cur = torch.full((b,), g.entry, dtype=torch.int32, device=q.device)
+        d0 = shadow_score(q, cur[:, None].long(), vectors, corpus.sq_norms,
+                          metric, (cur >= 0)[:, None])[:, 0].contiguous()
+        args = (q, q_sq, cur, d0, upper, vectors, corpus.sq_norms)
+        kc, kd = descent.greedy_descent(*args, metric)
+        visits = []
+        pc, pd = descent.greedy_descent_plain(*args, metric, visits=visits)
+        torch.cuda.synchronize()
+        same = kc == pc
+        agree = float(same.float().mean())
+        err = float((kd - pd)[same].abs().max())
+        # f32 sums in another order; euclidean is held in d^2 / 2 max|v|^2,
+        # where that error is additive (the walks end at the query's own
+        # row, where sqrt magnifies it), as the tests hold it
+        tol, scaled = 1e-4 * max(float(pd.abs().max()), 1.0), err
+        if metric == "euclidean":
+            scale = 2 * float(corpus.sq_norms.max())
+            scaled = float((kd ** 2 - pd ** 2)[same].abs().max()) / scale
+            tol = 1e-5
+        check(agree >= 0.999, f"greedy_descent {metric}: endpoints agree "
+              f"{agree} < 0.999")
+        check(scaled <= tol, f"greedy_descent {metric}: distance error "
+              f"{scaled} > {tol}")
+        check(bool(torch.isfinite(kd).all()) and bool((kc >= 0).all()),
+              f"greedy_descent {metric}: non-finite or -1")
+        steps = sum(int(rows.numel()) for _, rows in visits)
+        ms = time_ms(lambda: descent.greedy_descent(*args, metric))
+        plain_ms = time_ms(lambda: descent.greedy_descent_plain(*args, metric),
+                           reps=3, warmup=1)
+        # the yardstick: one gather + einsum of the first step, in the
+        # kernel's dtype, times the batch steps the plain loop took
+        nb = upper[-1][cur.long()].clamp(min=0)
+        qc = q.to(vectors.dtype)
+        lib_ms = time_ms(lambda: torch.einsum(
+            "bd,bmd->bm", qc, vectors[nb])) * len(visits)
+        bms, by = bound(descent_bytes(torch, upper, vectors, visits, b),
+                        2 * steps * upper.shape[2] * vectors.shape[1],
+                        BF16_OPS_S)
+        descent.greedy_descent.launches = launches
+        say("device_loop", stage="descent", metric=metric,
+            dtype=str(vectors.dtype).split(".")[-1],
+            shape=f"B={b},L={upper.shape[0]},M={upper.shape[2]},"
+            f"D={vectors.shape[1]},N_pad={vectors.shape[0]}",
+            endpoints_identical=agree, bar=0.999, max_abs_err=err,
+            held_err=scaled, tol=tol,
+            steps_per_query=steps / b, batch_steps=len(visits),
+            kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+            bound_by=by, **(ptxas_fields("greedy_descent")
+                            if metric == "cosine" else {}))
+        if metric == "cosine":
+            records["greedy_descent"] = dict(
+                name="greedy_descent", route="cuda",
+                source="hnsw_tpu_torch/csrc/descent.cu",
+                replaces="hnsw_tpu/models/hnsw/search.py:123",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+        del vectors, args
+
+
+def hops_of(module, call):
+    """Run call() with `module`'s hnsw_search_batch counting hops, and
+    return the hop counts of its searches."""
+    real, seen = module.hnsw_search_batch, []
+
+    def counting(*args, **kwargs):
+        d, r, hops = real(*args, debug_hops=True, **kwargs)
+        seen.append(hops)
+        return d, r
+
+    module.hnsw_search_batch = counting
+    try:
+        call()
+    finally:
+        module.hnsw_search_batch = real
+    return seen
+
+
+def device_loop_path(torch, index, data, records):
+    """Phase 4b on phase 4's graph: D1 against its plain version, then the
+    HNSW search replayed from a captured CUDA graph against the eager
+    sync-free search (bf16 and int8 packs, sampled and hierarchy entries,
+    B=1,024 and 32), IVF-HNSW and the entry() twin captured and replayed,
+    each with the device's idle share; hops against max_hops per mode and
+    family. Launch counts zeroed just before the searches, read after."""
+    import hnsw_tpu_torch as ht
+    import hnsw_tpu_torch.models.ivf_hnsw as ivf_mod
+    from hnsw_tpu_torch.config import IVF_HNSW_MODES, Mode, ef_for
+    from hnsw_tpu_torch.entry import entry
+    from hnsw_tpu_torch.models import FlatIndex, HNSWIndex
+    from hnsw_tpu_torch.utils.graphs import CapturedCall
+
+    corpus = index.corpus
+    q1024 = corpus.pad_queries(data[:1024])
+    _, truth = FlatIndex(corpus).search_batch(q1024, K)
+    check_descent_kernel(torch, index, q1024, records)
+    torch.cuda.empty_cache()
+
+    kernels = all_kernels()
+    for fn in kernels:
+        fn.launches = 0
+    for mode_name, pp in (("sample", "bf16"), ("sample", "int8"),
+                          ("hierarchy", "bf16"), ("hierarchy", "int8")):
+        idx = HNSWIndex(corpus, index.graph, entry_sample=ENTRY_SAMPLE,
+                        entry_mode=mode_name, pack_precision=pp)
+        for mode in ("turbo", "balanced"):
+            for b in ((1024, 32) if mode == "balanced" else (1024,)):
+                q = q1024[:b]
+                run = idx._search_fn(K, mode, None, True)[0]
+                ed, er, eh = run(q)
+                d, r, hops = idx.search_batch(q, K, mode, debug_hops=True)
+                d2, r2, hops2 = idx.search_batch(q, K, mode, debug_hops=True)
+                label = f"hnsw_{pp}_pack {mode_name} {mode} B={b}"
+                check(_rows_equal(torch, r, er) and _rows_equal(torch, r2, er)
+                      and bool(torch.equal(d, ed)),
+                      f"{label}: replay differs from the eager search")
+                check(hops == hops2 == int(eh),
+                      f"{label}: hops {hops} / {hops2} / {int(eh)}")
+                check(bool((r >= 0).all()) and bool(torch.isfinite(d).all()),
+                      f"{label}: row -1 or a non-finite distance")
+                rec = recall(r, truth[:b])
+                self_first = float((r[:, 0].cpu() == torch.arange(b)).float()
+                                   .mean())
+                ef = ef_for(mode, K)
+                max_hops = ef // min(idx.expand, ef) + 12
+                fields = dict(family=label, recall_at_10=rec,
+                              self_first=self_first, hops=hops,
+                              max_hops=max_hops, rows_identical_to_eager=True)
+                if mode == "balanced":
+                    run = idx._search_fn(K, mode, None, False)[0]
+                    eager = device_share(torch, lambda: run(q))
+                    replay = device_share(
+                        torch, lambda: idx.search_batch(q, K, mode))
+                    fields.update(
+                        eager_unprofiled_ms=batch_ms(torch, lambda: run(q)),
+                        replay_unprofiled_ms=batch_ms(
+                            torch, lambda: idx.search_batch(q, K, mode)),
+                        replay_event_ms=time_ms(
+                            lambda: idx.search_batch(q, K, mode), reps=3),
+                        **{f"eager_{k}": v for k, v in eager.items()},
+                        **{f"replay_{k}": v for k, v in replay.items()})
+                say("device_loop", stage="replay", **fields)
+                if mode == "balanced" and b == 1024:
+                    check(rec >= 0.95, f"{label}: recall {rec}")
+                    # phase 4's self-first bar, where phase 4 holds it:
+                    # from the graph's entry, the reference's walk misses
+                    # the same queries (scripts/entry_sample_card.py, then
+                    # scripts/entry_sample_reference.py; PERF.md)
+                    if mode_name == "sample":
+                        check(self_first >= 0.99,
+                              f"{label}: self first {self_first}")
+        del idx
+        torch.cuda.empty_cache()
+
+    # IVF-HNSW (multi-entry seeds, no descent) and the entry() twin, each
+    # captured and replayed against its eager run
+    ivf = ht.build_index(corpus, "ivf_hnsw", num_partitions=32)
+    for mode in ("balanced", "precise"):
+        hops = hops_of(ivf_mod, lambda: ivf.search_batch(q1024, K, mode))
+        _, ef = IVF_HNSW_MODES[Mode.coerce(mode)]
+        ef = max(ef, K)
+        say("device_loop", stage="hops", family="ivf_hnsw", mode=mode,
+            hops=hops[0], max_hops=2 * (ef // min(ivf.expand, ef)) + 16)
+    ed, er = ivf.search_batch(q1024, K, "balanced")
+    call = CapturedCall(lambda q: ivf.search_batch(q, K, "balanced"), q1024)
+    d, r = call(q1024)
+    check(_rows_equal(torch, r, er) and bool(torch.equal(d, ed)),
+          "ivf_hnsw: replay differs from the eager search")
+    say("device_loop", stage="replay", family="ivf_hnsw balanced B=1024",
+        recall_at_10=recall(r, truth[:1024]), rows_identical_to_eager=True,
+        eager_unprofiled_ms=batch_ms(
+            torch, lambda: ivf.search_batch(q1024, K, "balanced")),
+        replay_unprofiled_ms=batch_ms(torch, lambda: call(q1024)),
+        replay_event_ms=time_ms(lambda: call(q1024), reps=3),
+        **{f"replay_{k}": v for k, v in device_share(
+            torch, lambda: call(q1024)).items()})
+    del ivf, call
+    torch.cuda.empty_cache()
+
+    step, args = entry()
+    ed, er = step(*args)
+    call = CapturedCall(lambda q: step(*args[:5], q), args[5])
+    d, r = call(args[5])
+    check(_rows_equal(torch, r, er) and bool(torch.equal(d, ed)),
+          "entry(): replay differs from the eager search")
+    check(float((r[:, 0].cpu() == torch.arange(32)).float().mean()) >= 0.9,
+          "entry(): queries do not find themselves")
+    say("device_loop", stage="replay", family="entry() B=32",
+        rows_identical_to_eager=True,
+        eager_unprofiled_ms=batch_ms(torch, lambda: step(*args)),
+        replay_unprofiled_ms=batch_ms(torch, lambda: call(args[5])),
+        replay_event_ms=time_ms(lambda: call(args[5]), reps=3),
+        **{f"replay_{k}": v for k, v in device_share(
+            torch, lambda: call(args[5])).items()})
+
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    say("device_loop", launches=json.dumps(launches))
+    for name in ("greedy_descent", "hop_score", "hop_score_int8"):
+        check(launches[name] > 0, f"{name} was not launched in phase 4b")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the API path
 # ---------------------------------------------------------------------------
 
@@ -747,11 +998,13 @@ def api_path(torch, data):
     import numpy as np
 
     import hnsw_tpu_torch as ht
-    from hnsw_tpu_torch.ops import hop, scan
+    from hnsw_tpu_torch.ops import descent, hop, scan
 
+    # the wave insert walks the upper layers with greedy_descent
     kernels = (hop.hop_score, hop.hop_score_int8, scan.bucket_topk,
                scan.int8_bucket_topk, scan.exact_topk_sweep,
-               scan.int8_sweep_topk, scan.int8_packed_topk)
+               scan.int8_sweep_topk, scan.int8_packed_topk,
+               descent.greedy_descent)
     for fn in kernels:
         fn.launches = 0
     qf = data[:4096]
@@ -1164,12 +1417,8 @@ def families_path(torch, data):
 # ---------------------------------------------------------------------------
 
 def all_kernels():
-    from hnsw_tpu_torch.ops import hop, probes, scan
-    return (hop.hop_score, hop.hop_score_int8, scan.bucket_topk,
-            scan.int8_bucket_topk, scan.exact_topk_sweep,
-            scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
-            probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
-            probes.matmul_min)
+    from hnsw_tpu_torch.utils.graphs import kernel_wrappers
+    return kernel_wrappers()
 
 
 def overlap(a, b) -> float:
@@ -1339,16 +1588,18 @@ def builder_card_vs_cpu(torch, data):
 def merges_path(torch, index, queries):
     """Phase 4's HNSW index served at balanced with each beam merge. The
     index has no merge option (nor has the reference's), so the merge is
-    bound into the hnsw_search_batch its search_batch calls."""
+    bound into the search its search_batch calls, and the searches it
+    captured before are dropped, so that each merge is captured anew."""
     import functools
 
     import hnsw_tpu_torch.models.hnsw as hmod
 
-    real = hmod.hnsw_search_batch
+    real = hmod._search_batch
     rows, ms = {}, {}
     try:
         for merge in ("sort", "bitonic", "approx"):
-            hmod.hnsw_search_batch = functools.partial(real, merge=merge)
+            hmod._search_batch = functools.partial(real, merge=merge)
+            index._drop_graphs()
             rows[merge] = index.search_batch(queries, K, "balanced")[1]
             torch.cuda.synchronize()
             times = []
@@ -1359,7 +1610,8 @@ def merges_path(torch, index, queries):
                 times.append((time.perf_counter() - t0) * 1e3)
             ms[merge] = statistics.median(times)
     finally:
-        hmod.hnsw_search_batch = real
+        hmod._search_batch = real
+        index._drop_graphs()
     agree = {m: _row_agreement(rows[m], rows["sort"])
              for m in ("bitonic", "approx")}
     say("large", stage="merges", n=index.corpus.n, batch=len(queries),
@@ -1659,6 +1911,10 @@ def main() -> int:
 
     launches, served = main_path(torch, data)
     torch.cuda.empty_cache()
+    t4b = time.perf_counter()
+    loop_launches = device_loop_path(torch, served, data, records)
+    say("device_loop", seconds=time.perf_counter() - t4b)
+    torch.cuda.empty_cache()
     api_launches = api_path(torch, data)
     torch.cuda.empty_cache()
     probe_launches = probe_path(torch, data, records, floor_ms)
@@ -1677,9 +1933,10 @@ def main() -> int:
     out = []
     for name in KERNELS:
         rec = records[name]
-        rec["launches"] = (launches.get(name, 0) + api_launches.get(name, 0)
-                           + probe_launches[name] + large_launches[name]
-                           + parallel_launches[name])
+        rec["launches"] = sum(
+            phase.get(name, 0) for phase in (
+                launches, loop_launches, api_launches, probe_launches,
+                large_launches, parallel_launches))
         check(rec["launches"] > 0, f"{name} was not launched in phases 4-9")
         out.append({k: rec[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",

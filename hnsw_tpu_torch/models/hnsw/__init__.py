@@ -6,6 +6,7 @@ Mode presets map to ef as in ``config.HNSW_EF``.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -17,11 +18,13 @@ from hnsw_tpu_torch.models.common import as_corpus
 from hnsw_tpu_torch.models.hnsw.build import build_graph, insert_wave
 from hnsw_tpu_torch.models.hnsw.graph import (HNSWGraph, assign_levels,
                                               empty_graph)
-from hnsw_tpu_torch.models.hnsw.search import (hnsw_search_batch,
+from hnsw_tpu_torch.models.hnsw.search import (_search_batch,
+                                               hnsw_search_batch,
                                                pack_neighbors,
                                                pack_neighbors_int8,
                                                sample_entries)
 from hnsw_tpu_torch.types import Corpus, Metric
+from hnsw_tpu_torch.utils.graphs import CapturedCall
 
 
 class HNSWIndex(ANNIndex):
@@ -31,6 +34,9 @@ class HNSWIndex(ANNIndex):
     # used while the duplicated table fits this budget; "auto" pack precision
     # takes bf16 while it fits, else int8
     PACK_BYTES_CAP = 6 << 30
+    # captured searches kept on the card, the least recently used dropped
+    # first (each holds its own memory pool)
+    GRAPH_CACHE = 8
 
     def __init__(self, corpus: Corpus, graph: HNSWGraph, *,
                  expand: int = 4, entry_mode: str = "sample",
@@ -62,6 +68,7 @@ class HNSWIndex(ANNIndex):
         self._nbr_pack = None
         self._nbr_sq = None
         self._nbr_scale = None
+        self._graphs = OrderedDict()
 
     def _entry_rows(self) -> torch.Tensor:
         if self._sample_rows is None or \
@@ -74,6 +81,9 @@ class HNSWIndex(ANNIndex):
 
     def search_batch(self, queries, k: int, mode: Mode = Mode.BALANCED,
                      ef: Optional[int] = None, debug_hops: bool = False):
+        """On the card the search is replayed from a CUDA graph captured at
+        the first call of each (batch shape, k, ef, mode-derived settings,
+        pack kind); the CPU runs it directly."""
         q = self.corpus.pad_queries(queries)
         dev = q.device
         if self.graph.n == 0 or self.graph.entry < 0:
@@ -81,50 +91,63 @@ class HNSWIndex(ANNIndex):
             out = (torch.full((b, k), float("inf"), device=dev),
                    torch.full((b, k), -1, dtype=torch.int32, device=dev))
             return out + (0,) if debug_hops else out
+        run, key = self._search_fn(k, mode, ef, debug_hops)
+        if dev.type != "cuda":
+            d, r, hops = run(q)
+        else:
+            key = (tuple(q.shape),) + key
+            call = self._graphs.pop(key, None)
+            if call is None:
+                while len(self._graphs) >= self.GRAPH_CACHE:
+                    self._graphs.popitem(last=False)
+                call = CapturedCall(run, q)
+            self._graphs[key] = call            # the most recently used last
+            d, r, hops = call(q)
+        return (d, r, int(hops)) if debug_hops else (d, r)
+
+    def _drop_graphs(self):
+        """Forget every captured search: each replays on the tensors it was
+        captured with (the shadow, pack, projection, graph and corpus)."""
+        self._graphs.clear()
+
+    def _search_fn(self, k: int, mode: Mode, ef: Optional[int],
+                   debug_hops: bool):
+        """The search of a batch as a function of the padded queries alone,
+        with every host decision taken and every cached shadow, pack and
+        entry sample built here, ahead of any capture. Returns (run, key):
+        run(q) -> (dists, rows, hops) and the settings that fix it."""
         ef = ef if ef is not None else ef_for(mode, k)
         # "auto": bf16-class loop scoring for cosine; the euclidean norm
         # formula cancels at bf16, so it keeps f32
         precision = self.precision if self.precision != "auto" else (
             "default" if self.corpus.metric == Metric.COSINE else "highest")
-        if self.entry_mode == "sample":
-            # one product against a row sample replaces the serial
-            # upper-layer descent; entry_mode="hierarchy" walks the layers
-            entries, _ = sample_entries(
-                self.corpus.vectors, self.corpus.sq_norms,
-                self._entry_rows(), q, metric=self.corpus.metric)
-            upper = self.graph.adj_upper[:0]
-        else:
-            entries = torch.full((q.shape[0],), self.graph.entry,
-                                 dtype=torch.int32, device=dev)
-            upper = self.graph.adj_upper
+        vectors, v_sq = self.corpus.vectors, self.corpus.sq_norms
+        metric = self.corpus.metric
         lowdim = (self.pack_dim is not None and precision != "highest"
-                  and self.pack_dim < self.corpus.vectors.shape[1])
-        loop_dim = self.pack_dim if lowdim else self.corpus.vectors.shape[1]
-        queries_lp = None
-        v_sq_lp = None
+                  and self.pack_dim < vectors.shape[1])
+        loop_dim = self.pack_dim if lowdim else vectors.shape[1]
         if lowdim:
             if self._proj is None or self._proj.shape[1] != self.pack_dim:
                 # PCA basis: one [D, D] f32 product on the device and a host
                 # eigh (ascending eigenvalues)
-                vf = self.corpus.vectors
-                cov = torch.matmul(vf.T, vf).cpu().numpy()
+                cov = torch.matmul(vectors.T, vectors).cpu().numpy()
                 w, v = np.linalg.eigh(cov)
                 self._proj = torch.from_numpy(
-                    v[:, ::-1][:, : self.pack_dim].copy()).to(dev)
+                    v[:, ::-1][:, : self.pack_dim].copy()).to(vectors.device)
                 self._vec_lp = None
             if self._vec_lp is None or tuple(self._vec_lp.shape) != (
-                    self.corpus.vectors.shape[0], self.pack_dim):
-                self._vec_lp = torch.matmul(
-                    self.corpus.vectors, self._proj).to(torch.bfloat16)
+                    vectors.shape[0], self.pack_dim):
+                self._vec_lp = torch.matmul(vectors, self._proj).to(
+                    torch.bfloat16)
                 vf = self._vec_lp.float()
                 self._vsq_lp = torch.sum(vf * vf, dim=-1)
                 self._nbr_pack = None
-            queries_lp = torch.matmul(q, self._proj)
-            v_sq_lp = self._vsq_lp
-        elif self._vec_lp is None or \
-                self._vec_lp.shape != self.corpus.vectors.shape:
-            self._vec_lp = self.corpus.vectors.to(torch.bfloat16)
+                self._drop_graphs()
+        elif self._vec_lp is None or self._vec_lp.shape != vectors.shape:
+            self._vec_lp = vectors.to(torch.bfloat16)
             self._vsq_lp = None
+            self._nbr_pack = None
+            self._drop_graphs()
         # the pack is a quantized shadow (bf16 or int8 codes): full-f32
         # ("highest") scoring keeps exact row gathers
         pack_bytes = {
@@ -141,7 +164,7 @@ class HNSWIndex(ANNIndex):
         want_dtype = torch.int8 if pp == "int8" else torch.bfloat16
         if use_pack and (self._nbr_pack is None
                          or self._nbr_pack.dtype != want_dtype):
-            src_sq = self._vsq_lp if lowdim else self.corpus.sq_norms
+            src_sq = self._vsq_lp if lowdim else v_sq
             if pp == "int8":
                 self._nbr_pack, self._nbr_scale, self._nbr_sq = \
                     pack_neighbors_int8(self._vec_lp, src_sq, self.graph.adj0)
@@ -149,22 +172,41 @@ class HNSWIndex(ANNIndex):
                 self._nbr_pack, self._nbr_sq = pack_neighbors(
                     self._vec_lp, src_sq, self.graph.adj0)
                 self._nbr_scale = None
-        return hnsw_search_batch(
-            self.corpus.vectors, self.corpus.sq_norms,
-            self.graph.adj0, upper, entries, q,
-            k=k, ef=ef, expand=self.expand,
-            metric=self.corpus.metric, precision=precision,
-            vectors_lp=self._vec_lp,
+            self._drop_graphs()
+        hierarchy = self.entry_mode != "sample"
+        sample_rows = None if hierarchy else self._entry_rows()
+        proj = self._proj if lowdim else None
+        kw = dict(
+            k=k, ef=ef, expand=self.expand, metric=metric,
+            precision=precision, vectors_lp=self._vec_lp,
             nbr_pack=self._nbr_pack if use_pack else None,
             nbr_sq=self._nbr_sq if use_pack else None,
             nbr_scale=self._nbr_scale if use_pack else None,
-            queries_lp=queries_lp,
-            v_sq_lp=v_sq_lp,
+            v_sq_lp=self._vsq_lp if lowdim else None,
             # re-ranking a rerank_mult*k beam prefix exactly recovers the
             # near-ties the bf16 shadow reorders
-            rerank=self.rerank_mult * k,
-            debug_hops=debug_hops,
-        )
+            rerank=self.rerank_mult * k, debug_hops=debug_hops)
+        graph = self.graph
+
+        def run(q):
+            if hierarchy:
+                entries = torch.full((q.shape[0],), graph.entry,
+                                     dtype=torch.int32, device=q.device)
+                upper = graph.adj_upper
+            else:
+                # one product against a row sample replaces the serial
+                # upper-layer descent; entry_mode="hierarchy" walks the
+                # layers
+                entries, _ = sample_entries(vectors, v_sq, sample_rows, q,
+                                            metric=metric)
+                upper = graph.adj_upper[:0]
+            return _search_batch(
+                vectors, v_sq, graph.adj0, upper, entries, q,
+                queries_lp=torch.matmul(q, proj) if lowdim else None, **kw)
+
+        key = (k, ef, precision, hierarchy, self.expand, self.rerank_mult,
+               pp if use_pack else None, loop_dim, debug_hops)
+        return run, key
 
     def add_batch(self, data, ids=None, *, seed_offset: int = 0):
         """Append new vectors and connect them with a batched wave insert
@@ -193,6 +235,7 @@ class HNSWIndex(ANNIndex):
         self._nbr_scale = None
         self._vsq_lp = None
         self._proj = None          # the PCA basis tracks the grown corpus
+        self._drop_graphs()        # they replay on the old corpus and graph
         new_rows = np.arange(old_n, old_n + w, dtype=np.int32)
         new_levels = assign_levels(w, DEFAULTS["ml"],
                                    DEFAULTS["seed"] + old_n + seed_offset)

@@ -11,8 +11,14 @@ ever decreases, so an evicted node can never re-enter it, and per-slot
 Termination matches the serial rule (best unexpanded candidate worse than
 the worst beam member) per query.
 
-The reference's ``lax.while_loop`` hop loop and greedy descent become Python
-loops here, each with one host sync per iteration on ``any(active)``.
+The reference jits the whole search, its hop loop and greedy descent
+``lax.while_loop``s, so a batch runs from seeding to result with no host
+round trip. On the card the port does too: the greedy descent is one launch
+of the hand-written kernel ``ops/descent.py`` (``csrc/descent.cu``), and the
+hop loop runs exactly ``max_hops`` bodies (``_hops_fixed``), so nothing
+waits on the host and the whole search can be captured in one CUDA graph
+(``HNSWIndex.search_batch`` replays one). On the CPU both keep their early
+exit, a host check of ``any(active)`` per step.
 
 With a neighbour pack, each hop's scoring is ``ops/hop.py``: on the card the
 hand-written kernels ``hop_score`` (bf16 pack) and ``hop_score_int8`` (int8
@@ -24,7 +30,9 @@ from __future__ import annotations
 
 import torch
 
+from hnsw_tpu_torch.ops.descent import greedy_descent
 from hnsw_tpu_torch.ops.distance import BIG, _dist_bc
+from hnsw_tpu_torch.ops.distance import shadow_score as _score
 from hnsw_tpu_torch.ops.sort import bitonic_topk_presorted
 from hnsw_tpu_torch.ops.topk import top_k_ascending
 from hnsw_tpu_torch.types import Metric
@@ -69,35 +77,29 @@ def _beam_merge(beam_d, beam_i, beam_e, cand_d, cand_i, ef: int,
     return kd, torch.gather(all_i, -1, sel), torch.gather(all_e, -1, sel)
 
 
-def _score(queries, rows, vectors, v_sq, metric, valid):
-    """Gather+dot candidate scoring. With a bf16 shadow as `vectors`, the
-    query is rounded to bf16 too and the products are f32 (exact), as the
-    reference's bf16 einsum with an f32 result."""
-    cand = vectors[rows]                                    # [B, C, D]
-    qc = queries.to(cand.dtype).float()
-    dots = torch.einsum("bd,bcd->bc", qc, cand.float())
-    q_sq = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
-    c_sq = v_sq[rows]
-    d = _dist_bc(dots, q_sq, c_sq, metric)
-    return torch.where(valid, d, BIG)
+def _runs_fixed_length(device) -> bool:
+    """Whether the hop loop runs all max_hops bodies (the card: no host
+    sync) rather than stopping once no query is active (the CPU)."""
+    return device.type == "cuda"
 
 
-def _greedy_descent(queries, cur, cur_d, adj_l, vectors, v_sq, metric):
-    """One-probe greedy walk on an upper layer until no neighbour improves."""
-    improving = torch.ones_like(cur, dtype=torch.bool)
-    while bool(improving.any()):
-        nb = adj_l[cur]                                     # [B, M]
-        valid = (nb >= 0) & improving[:, None]
-        d = _score(queries, torch.clamp(nb, min=0), vectors, v_sq, metric,
-                   valid)
-        j = torch.argmin(d, dim=-1, keepdim=True)           # first minimum
-        best_d = torch.gather(d, -1, j)[:, 0]
-        best_id = torch.gather(nb, -1, j)[:, 0]
-        better = (best_d < cur_d) & improving
-        cur = torch.where(better, best_id, cur)
-        cur_d = torch.where(better, best_d, cur_d)
-        improving = better
-    return cur, cur_d
+def _hops_fixed(body, state, max_hops: int, count: bool):
+    """The card's hop loop: exactly max_hops bodies, with no host sync.
+
+    A body run after a query's `active` fell is a no-op for that query in
+    the reference's own state: `take` is all false, so its sel_ids are -1,
+    every candidate is invalid (BIG, -1), and the stable merge keeps the
+    beam's (d, id, expanded) slots as they were. So rows and distances are
+    those of the early-exit loop. `active` only ever falls, so adding
+    any(active) before each body counts the bodies the early-exit loop runs,
+    the reference's trip count (a device scalar; None unless `count`)."""
+    hops = (torch.zeros((), dtype=torch.int32, device=state[0].device)
+            if count else None)
+    for _ in range(max_hops):
+        if count:
+            hops += state[3].any()
+        state = body(*state)
+    return state, hops
 
 
 def _dedupe_row(ids, valid):
@@ -110,7 +112,16 @@ def _dedupe_row(ids, valid):
     return valid & ~dup
 
 
-def hnsw_search_batch(
+def hnsw_search_batch(*args, debug_hops: bool = False, **kwargs):
+    """Full hierarchy search (arguments: _search_batch). Returns (dists
+    [B, k], rows int32 [B, k]), rows = -1 for missing; with debug_hops also
+    the number of hops taken, read from the card once, after the result."""
+    out_d, out_i, hops = _search_batch(*args, debug_hops=debug_hops,
+                                       **kwargs)
+    return (out_d, out_i, int(hops)) if debug_hops else (out_d, out_i)
+
+
+def _search_batch(
     vectors,                  # [N_pad, D] f32
     v_sq,                     # [N_pad]
     adj0,                     # int32 [N_pad, M0]
@@ -131,7 +142,7 @@ def hnsw_search_batch(
     nbr_sq=None,              # [N_pad, M0] their squared norms
     nbr_scale=None,           # [N_pad, M0] int8 dequant scales (marks the
                               # pack as int8 codes)
-    debug_hops: bool = False,  # also return the hop count taken
+    debug_hops: bool = False,  # count the hops taken
     merge: str | None = None,  # beam-merge variant (see _beam_merge)
     queries_lp=None,         # [B, D_lp] projected queries for a reduced-dim
                               # shadow (vectors_lp / nbr_pack)
@@ -139,8 +150,10 @@ def hnsw_search_batch(
     rerank: int = 0,          # beam prefix the exact final re-rank
                               # considers (0 => k)
 ):
-    """Full hierarchy search. Returns (dists [B, k], rows int32 [B, k]),
-    rows = -1 for missing; with debug_hops also the number of hops taken."""
+    """hnsw_search_batch with no host sync on the card. Returns (dists
+    [B, k], rows int32 [B, k], hops): rows = -1 for missing; hops is the
+    hop count, an int on the CPU and a device scalar on the card (None there
+    unless debug_hops), which a captured graph returns without a sync."""
     from hnsw_tpu_torch.ops.hop import hop_score, hop_score_int8
 
     metric = Metric.coerce(metric)
@@ -161,6 +174,8 @@ def hnsw_search_batch(
                             and precision != "highest") else queries
     v_sq_loop = v_sq_lp if (v_sq_lp is not None
                             and precision != "highest") else v_sq
+
+    q_sq_loop = torch.sum(q_loop.float() ** 2, dim=-1, keepdim=True)
 
     # ---- seed the beam -------------------------------------------------
     m0 = adj0.shape[1]
@@ -185,19 +200,17 @@ def hnsw_search_batch(
         cur = torch.broadcast_to(entries, (b,)).clone()
         d0 = _score(q_loop, torch.clamp(cur[:, None], min=0), loop_vecs,
                     v_sq_loop, metric, (cur >= 0)[:, None])[:, 0]
-        for l in range(adj_upper.shape[0] - 1, -1, -1):
-            cur, d0 = _greedy_descent(q_loop, cur, d0, adj_upper[l],
-                                      loop_vecs, v_sq_loop, metric)
+        # every upper layer in one walk: the kernel of ops/descent.py on a
+        # CUDA tensor, its plain batch loop on the CPU
+        cur, d0 = greedy_descent(q_loop, q_sq_loop, cur, d0, adj_upper,
+                                 loop_vecs, v_sq_loop, metric)
         beam_d[:, 0] = d0
         beam_ids[:, 0] = cur
     beam_exp = torch.zeros((b, ef), dtype=torch.bool, device=dev)
     e_iota = torch.arange(e, dtype=torch.int32, device=dev)
-    q_sq_loop = torch.sum(q_loop.float() ** 2, dim=-1, keepdim=True)
     q_kernel = q_loop.float().contiguous()
 
-    active = torch.ones((b,), dtype=torch.bool, device=dev)
-    hops = 0
-    while hops < max_hops and bool(active.any()):
+    def body(beam_d, beam_ids, beam_exp, active):
         elig = (~beam_exp) & (beam_ids >= 0)
         # the beam is sorted ascending, so the FIRST e eligible slots are the
         # e best unexpanded candidates: rank-compact them with a cumsum
@@ -238,7 +251,18 @@ def hnsw_search_batch(
         beam_d, beam_ids, beam_exp = _beam_merge(
             beam_d, beam_ids, beam_exp, d_nb, torch.where(valid, nb, -1), ef,
             force=merge)
-        hops += 1
+        return beam_d, beam_ids, beam_exp, active
+
+    state = (beam_d, beam_ids, beam_exp,
+             torch.ones((b,), dtype=torch.bool, device=dev))
+    if _runs_fixed_length(dev):
+        state, hops = _hops_fixed(body, state, max_hops, debug_hops)
+    else:
+        hops = 0
+        while hops < max_hops and bool(state[3].any()):
+            state = body(*state)
+            hops += 1
+    beam_d, beam_ids = state[0], state[1]
 
     # exact final re-rank of a `rerank`-wide beam prefix (wider for a
     # reduced-dim shadow, whose in-loop order is noisier)
@@ -253,9 +277,7 @@ def hnsw_search_batch(
         out_i = torch.where(out_d < BIG, out_i, -1)
     else:
         out_d, out_i = out_d[:, :k], out_i[:, :k]
-    if debug_hops:
-        return out_d, out_i, hops
-    return out_d, out_i
+    return out_d, out_i, hops
 
 
 def pack_neighbors(vectors_lp, v_sq, adj0):

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu")
+SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu", "descent.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,6 +68,14 @@ SIGNATURES = {
         "sweep_topk_int8": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
         # part_d, part_r, out_d, out_r, B, k, lists, stream
         "sweep_merge": (P, P, P, P, I, I, I, P),
+    },
+    "descent.cu": {
+        # queries, q_sq, cur, cur_d, adj_upper, vectors, v_sq, cur_out,
+        # d_out, B, L, N_pad, M, D, metric, stream
+        "greedy_descent_bf16": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                P),
+        "greedy_descent_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                               P),
     },
     "probes.cu": {
         # v (or vT), q, part, out, B, N, D, kmajor, splits, stream

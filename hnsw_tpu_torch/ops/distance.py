@@ -75,6 +75,22 @@ def gather_score(queries, rows, vectors, v_sq, *, metric: Metric,
     return d
 
 
+def shadow_score(queries, rows, vectors, v_sq, metric: Metric, valid,
+                 q_sq=None) -> torch.Tensor:
+    """The HNSW search's gather+dot candidate scoring against `vectors` in
+    their own dtype: with a bf16 shadow the query is rounded to bf16 too and
+    the products are f32 (exact), as the reference's bf16 einsum with an f32
+    result. q_sq [B, 1] defaults to the unrounded queries' squared norms.
+    Returns [B, C] distances, BIG where not valid."""
+    cand = vectors[rows]                                    # [B, C, D]
+    qc = queries.to(cand.dtype).float()
+    dots = torch.einsum("bd,bcd->bc", qc, cand.float())
+    if q_sq is None:
+        q_sq = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
+    d = _dist_bc(dots, q_sq, v_sq[rows], metric)
+    return torch.where(valid, d, BIG)
+
+
 def _dist_bc(dots, q_sq, c_sq, metric):
     """distances_from_dots variant where norms broadcast against [B, C]."""
     metric = Metric.coerce(metric)

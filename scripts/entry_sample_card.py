@@ -6,7 +6,9 @@ sizes, and save the graph and the result rows for the JAX package to search.
 
 Builds `build_hnsw_index(corpus, M=16)` on the CUDA card (cosine, the corpus
 of chip_smoke.py), searches 1024 corpus rows as queries (k=10) at `turbo`
-and `balanced` with `entry_sample` 512 (the default) and 2048, and prints
+and `balanced` with `entry_sample` 512 (the default) and 2048, and with
+`entry_mode="hierarchy"` (the greedy descent from the graph's entry), and
+prints
 recall@10 against the exact f32 flat index and the share of queries whose
 own row comes first. The .npz holds the graph (to_state arrays and params)
 and each run's rows, so that scripts/entry_sample_reference.py can search
@@ -23,7 +25,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N, DIM, SEED, K, NQ = 31173, 768, 42, 10, 1024
-SAMPLES = (512, 2048)
+SAMPLES = (512, 2048, "hierarchy")
 MODES = ("turbo", "balanced")
 
 
@@ -53,7 +55,9 @@ def main() -> int:
     out["params"] = np.array(json.dumps(state["params"]))
     own = torch.arange(NQ, device=q.device)
     for s in SAMPLES:
-        index = HNSWIndex(corpus, built.graph, entry_sample=s)
+        index = HNSWIndex(corpus, built.graph, **(
+            dict(entry_mode="hierarchy") if s == "hierarchy"
+            else dict(entry_sample=s)))
         for mode in MODES:
             _, rows = index.search_batch(q, K, mode)
             hit = (rows[:, :, None] == truth[:, None, :]).any(-1) & (rows >= 0)

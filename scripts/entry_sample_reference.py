@@ -7,7 +7,8 @@ the JAX package (the reference), on the CPU, and compare with the port.
 
 Regenerates the same 31,173 x 768 stand-in corpus with the JAX package's own
 generator, loads the graph with `HNSWIndex.from_state`, and searches the
-same 1024 corpus rows (k=10) at the same modes and entry-sample sizes. The
+same 1024 corpus rows (k=10) at the same modes, entry-sample sizes and
+hierarchy entries. The
 search runs in batches of `--batch` queries without the neighbour pack,
 which keeps the process near 1.1 GiB at its peak; a query's result does
 not depend on its batch, and the unpacked path scores the same bf16
@@ -26,7 +27,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N, DIM, SEED, K, NQ = 31173, 768, 42, 10, 1024
-SAMPLES = (512, 2048)
+SAMPLES = (512, 2048, "hierarchy")
 MODES = ("turbo", "balanced")
 
 
@@ -58,8 +59,11 @@ def main() -> int:
     index = HNSWIndex.from_state(corpus, state)
     index.pack = False
     for s in SAMPLES:
-        index.entry_sample = s
-        index._sample_rows = None
+        if s == "hierarchy":
+            index.entry_mode = "hierarchy"
+        else:
+            index.entry_sample = s
+            index._sample_rows = None
         for mode in MODES:
             rows = np.concatenate([
                 np.asarray(index.search_batch(data[i:i + args.batch], K,

@@ -13,6 +13,8 @@
 4. scan_search takes the reference's positional order (starts before lens,
    cmax), gives JAX's rows, and raises on a starts or cmax that does not
    fit the slabs.
+5. The entry points of __graft_entry__.py, entry and dryrun_multichip,
+   have their twins: hnsw_tpu_torch/entry.py and parallel/dryrun.py.
 """
 
 import ast
@@ -80,6 +82,16 @@ def test_every_exported_name_exists(pkg):
     port = importlib.import_module("hnsw_tpu_torch" + pkg)
     missing = [n for n in ref.__all__ if not hasattr(port, n)]
     assert not missing, f"hnsw_tpu_torch{pkg} lacks {missing}"
+
+
+def test_graft_entry_points_have_twins():
+    hooks = _defined(ROOT / "__graft_entry__.py")
+    twins = {"entry": "entry.py", "dryrun_multichip": "parallel/dryrun.py"}
+    assert hooks == set(twins)
+    for name, rel in twins.items():
+        assert name in _defined(ROOT / "hnsw_tpu_torch" / rel), rel
+        module = "hnsw_tpu_torch." + rel[:-3].replace("/", ".")
+        assert callable(getattr(importlib.import_module(module), name))
 
 
 def test_mask_invalid_matches():

@@ -16,14 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from hnsw_tpu_torch.entry import entry
 from hnsw_tpu_torch.io.datagen import generate_vectors
 from hnsw_tpu_torch.models import (FlatIndex, HNSWIndex, IVFHNSWIndex,
                                    PartitionedHNSWIndex, build_hnsw_index,
                                    build_ivf_hnsw_index,
                                    build_partitioned_hnsw)
 from hnsw_tpu_torch.models.flat import quantize_rows
-from hnsw_tpu_torch.ops import hop, probes, scan
+from hnsw_tpu_torch.ops import descent, hop, probes, scan
 from hnsw_tpu_torch.types import Corpus
+from hnsw_tpu_torch.utils.graphs import CapturedCall, kernel_wrappers
 
 pytestmark = pytest.mark.gpu
 
@@ -521,3 +523,131 @@ def test_families_on_the_card_match_the_plain_path(cuda_device):
         _, cr = cpu.search_batch(q, 10, "balanced")
         assert (gr.cpu() == cr).all(dim=1).float().mean() >= 0.99
         assert bool((gr >= 0).all())
+
+
+def _descent_inputs(d, m, dtype, metric, device, duplicates=False):
+    """A random 3-layer upper graph over 2,000 rows (a tenth of its slots
+    empty), 300 queries near corpus rows, each walk starting at a random
+    row and its distance. duplicates: every row one of 50 vectors, so
+    neighbourhoods hold exact ties."""
+    g = torch.Generator(device="cpu").manual_seed(d * 31 + m)
+    n, b, layers = 2000, 300, 3
+    base = torch.randn(n, d, generator=g)
+    if duplicates:
+        base = base[torch.randint(0, 50, (n,), generator=g)]
+    if metric == "cosine":
+        base = torch.nn.functional.normalize(base, dim=1)
+    adj = torch.randint(0, n, (layers, n, m), generator=g, dtype=torch.int32)
+    adj[torch.rand(adj.shape, generator=g) < 0.1] = -1
+    q = base[torch.randint(0, n, (b,), generator=g)] + \
+        0.3 * torch.randn(b, d, generator=g)
+    cur = torch.randint(0, n, (b,), generator=g, dtype=torch.int32)
+    v_sq = (base * base).sum(1)
+    vectors = base.to(dtype)
+    q, cur, adj, vectors, v_sq = (t.to(device) for t in (q, cur, adj, vectors,
+                                                          v_sq))
+    q_sq = (q * q).sum(1)
+    d0 = descent.shadow_score(q, cur[:, None].long(), vectors, v_sq, metric,
+                              torch.ones((b, 1), dtype=torch.bool,
+                                         device=device))[:, 0]
+    return q, q_sq, cur, d0, adj, vectors, v_sq
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,m,dup", [(64, 8, False), (128, 16, False),
+                                     (768, 16, False), (128, 16, True)])
+def test_descent_kernel_matches_plain_version(d, m, dup, dtype, metric,
+                                              cuda_device):
+    """The walk's endpoints agree with the plain batch loop for >= 0.99 of
+    queries (f32 sums in another order can flip only near-ties; exact ties
+    of duplicate rows go to the first neighbour in both), and the distances
+    where they agree to 1e-5 of the largest; one launch a call."""
+    args = _descent_inputs(d, m, dtype, metric, cuda_device, dup)
+    before = descent.greedy_descent.launches
+    kc, kd = descent.greedy_descent(*args, metric)
+    assert descent.greedy_descent.launches == before + 1
+    pc, pd = descent.greedy_descent_plain(*args, metric)
+    same = kc == pc
+    assert float(same.float().mean()) >= 0.99
+    assert bool((kc != args[2]).any())
+    scale = float(pd.abs().max())
+    assert float((kd - pd)[same].abs().max()) <= 1e-5 * max(scale, 1.0)
+    kc2, kd2 = descent.greedy_descent(*args, metric)
+    assert torch.equal(kc, kc2) and torch.equal(kd, kd2)
+
+
+def test_descent_kernel_refuses_what_it_cannot_take(cuda_device):
+    q, q_sq, cur, d0, adj, vectors, v_sq = _descent_inputs(
+        64, 8, torch.bfloat16, "cosine", cuda_device)
+    with pytest.raises(ValueError):          # int64 rows
+        descent.greedy_descent(q, q_sq, cur.long(), d0, adj, vectors, v_sq,
+                               "cosine")
+    with pytest.raises(ValueError):          # rows of 12 bytes
+        descent.greedy_descent(q[:, :6].contiguous(), q_sq, cur, d0, adj,
+                               vectors[:, :6].contiguous(), v_sq, "cosine")
+
+
+def _launches():
+    return [w.launches for w in kernel_wrappers()]
+
+
+def test_search_is_captured_in_one_cuda_graph(cuda_device):
+    """hnsw_search_batch (the entry() twin: hierarchy descent, no pack)
+    captured whole in one CUDA graph: capturing counts no launch, each
+    replay adds the launches the graph holds, and two replays with other
+    queries each give the rows and distances of their eager runs, the
+    first result untouched by the second replay."""
+    fn, args = entry()
+    run = lambda q: fn(*args[:5], q)                     # noqa: E731
+    q1 = args[5]
+    q2 = torch.flip(q1, dims=[0]).contiguous()
+    e1, e2 = run(q1), run(q2)
+    before = _launches()
+    call = CapturedCall(run, q1)
+    assert call.launches == [(descent.greedy_descent, 1)]
+    warm = [a - b for a, b in zip(_launches(), before)]  # the eager warm-up
+    r1 = call(q1)
+    r2 = call(q2)
+    after = [a - b - w for a, b, w in zip(_launches(), before, warm)]
+    assert after == [2 if w is descent.greedy_descent else 0
+                     for w in kernel_wrappers()]
+    for got, want in ((r1, e1), (r2, e2)):
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("entry_mode,pp", [("sample", "bf16"),
+                                           ("hierarchy", "int8")])
+def test_hnsw_index_replays_its_captured_search(entry_mode, pp, cuda_device):
+    """HNSWIndex.search_batch replays a graph captured at its first call of
+    a shape: rows and hop counts those of the eager sync-free search, a
+    replay adds max_hops hop kernel launches (and one descent), and
+    add_batch drops the graphs, after which a new capture gives the eager
+    search's rows on the grown graph."""
+    data = generate_vectors(3000, 128, distribution="embedding",
+                            num_clusters=16, seed=5)
+    built = build_hnsw_index(data[:2900], M=16, device=cuda_device)
+    idx = HNSWIndex(built.corpus, built.graph, entry_mode=entry_mode,
+                    pack_precision=pp)
+    qs = [idx.corpus.pad_queries(data[i:i + 64]) for i in (0, 64)]
+    run, _ = idx._search_fn(10, "balanced", None, True)
+    eager = [run(q) for q in qs]
+    outs = [idx.search_batch(q, 10, "balanced", debug_hops=True) for q in qs]
+    assert len(idx._graphs) == 1
+    kernel = hop.hop_score_int8 if pp == "int8" else hop.hop_score
+    before = (kernel.launches, descent.greedy_descent.launches)
+    d, r, hops = idx.search_batch(qs[0], 10, "balanced", debug_hops=True)
+    max_hops = 200 // 4 + 12
+    assert (kernel.launches - before[0],
+            descent.greedy_descent.launches - before[1]) == (
+        max_hops, int(entry_mode == "hierarchy"))
+    for (gd, gr, gh), (ed, er, eh) in zip(outs, eager):
+        assert torch.equal(gr, er) and torch.equal(gd, ed) and gh == int(eh)
+    assert torch.equal(r, outs[0][1]) and 0 < hops <= max_hops
+    idx.add_batch(data[2900:])
+    assert len(idx._graphs) == 0
+    # a new capture searches the grown graph: the eager search's rows
+    q = idx.corpus.pad_queries(data[2900:2964])
+    d, r = idx.search_batch(q, 10, "balanced")
+    ed, er, _ = idx._search_fn(10, "balanced", None, False)[0](q)
+    assert torch.equal(r, er) and torch.equal(d, ed)
