@@ -19,12 +19,16 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
   4b. the search as one device program (device_loop_path), on phase 4's
      graph: the descent kernel (greedy_descent, D1) against its plain
      version from the graph's entry for 1,024 queries (bf16 shadow, cosine;
-     f32 corpus, euclidean; endpoints identical >= 0.999, steps per query,
-     ms, bound and yardstick); HNSWIndex's search replayed from its
-     captured CUDA graph against the eager sync-free search (bf16 and int8
-     packs, sampled and hierarchy entries, B=1,024 and 32; rows and hop
-     counts identical, phase 4's bars at balanced B=1,024), IVF-HNSW and
-     the entry() twin captured and replayed against their eager runs, each
+     f32 corpus, euclidean) and 32 (bf16, cosine): endpoints identical >=
+     0.999, the steps a query takes (mean, p99, max), the latency floor
+     (the longest walk times one dependent L2 round trip), one call and
+     back to back, bound, yardstick, and the ptxas registers, spills and
+     shared memory of the instantiation run; HNSWIndex's search replayed
+     from its captured CUDA graph against the eager sync-free search (bf16
+     and int8 packs, sampled and hierarchy entries, B=1,024 and 32; rows
+     and hop counts identical, phase 4's bars at balanced B=1,024),
+     IVF-HNSW and the entry() twin captured and replayed against their
+     eager runs, each
      with the device's idle share, and hops against max_hops;
   5. the API path at full width (hnsw_tpu_torch.build_index, save_index,
      load_index, Index): flat indexes with scan_kernel "sweep" (bf16, int8)
@@ -139,7 +143,7 @@ KERNEL_ENTRIES = {
     "matmul_only": ("probes.cu", "16last_tile_kernelILb0E"),
     "matmul_min": ("probes.cu", "16last_tile_kernelILb1E"),
     "greedy_descent": ("descent.cu",
-                       "14descent_kernelI13__nv_bfloat16Li0ELi3E"),
+                       "20descent_block_kernelI13__nv_bfloat16Li0ELi3E"),
 }
 
 
@@ -765,25 +769,63 @@ def descent_bytes(torch, adj_upper, vectors, visits, b: int) -> int:
             + b * (d * 4 + 4 + 8 + 8))
 
 
+def _script(name: str):
+    """scripts/<name>.py of this checkout, loaded by its path."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def descent_ptxas(metric: str, dtype, plan) -> dict:
+    """Registers and spill bytes of the descent instantiation that this
+    dtype, metric and plan run (its template arguments: the value type,
+    the metric code, the chunks a lane holds)."""
+    from hnsw_tpu_torch.ops import _cuda
+    nc = next(n for top, n in ((1, 1), (3, 3), (6, 6), (None, 0))
+              if top is None or plan.per_lane <= top)
+    value = "13__nv_bfloat16" if dtype.itemsize == 2 else "f"
+    piece = (f"20descent_block_kernelI{value}Li{METRIC_CODES[metric]}E"
+             f"Li{nc}E")
+    found = [v for k, v in _cuda.kernel_resources(
+        _cuda.BUILD_LOG.get("descent.cu", "")).items() if piece in k]
+    if not found:
+        return dict(registers="not built in this run",
+                    spill_bytes="not built in this run")
+    return dict(registers=found[0][0], spill_bytes=found[0][1])
+
+
 def check_descent_kernel(torch, index, q, records):
     """D1 against its plain version on phase 4's graph at full width: every
     query walks from the graph's entry, with the bf16 shadow (cosine, the
-    main path's) and with the f32 corpus (euclidean). Launches made here
-    are not counted."""
+    main path's) at B=1,024 and B=32, and with the f32 corpus (euclidean)
+    at B=1,024; the steps a query takes (scripts/descent_ablate.py's count
+    of the plain walk), the latency floor (the longest walk's steps times
+    one dependent L2 round trip, from that script's pointer chase), one
+    call and back to back. Launches made here are not counted."""
+    from hnsw_tpu_torch.bench.kernels import burst_ms
     from hnsw_tpu_torch.ops import descent
     from hnsw_tpu_torch.ops.distance import shadow_score
 
+    ablate = _script("descent_ablate")
     g, corpus = index.graph, index.corpus
-    b = q.shape[0]
-    q_sq = (q * q).sum(-1)
     upper = g.adj_upper
-    for metric, vectors in (("cosine", corpus.vectors.to(torch.bfloat16)),
-                            ("euclidean", corpus.vectors)):
+    round_trip_us, _ = ablate.chase_round_trip(
+        torch, dict(upper=upper, entry=int(g.entry)))
+    for metric, dtype, b in (("cosine", torch.bfloat16, 1024),
+                             ("euclidean", torch.float32, 1024),
+                             ("cosine", torch.bfloat16, 32)):
+        vectors = corpus.vectors.to(dtype)
+        qb = q[:b].contiguous()
+        q_sq = (qb * qb).sum(-1)
         launches = descent.greedy_descent.launches
         cur = torch.full((b,), g.entry, dtype=torch.int32, device=q.device)
-        d0 = shadow_score(q, cur[:, None].long(), vectors, corpus.sq_norms,
+        d0 = shadow_score(qb, cur[:, None].long(), vectors, corpus.sq_norms,
                           metric, (cur >= 0)[:, None])[:, 0].contiguous()
-        args = (q, q_sq, cur, d0, upper, vectors, corpus.sq_norms)
+        args = (qb, q_sq, cur, d0, upper, vectors, corpus.sq_norms)
         kc, kd = descent.greedy_descent(*args, metric)
         visits = []
         pc, pd = descent.greedy_descent_plain(*args, metric, visits=visits)
@@ -799,37 +841,53 @@ def check_descent_kernel(torch, index, q, records):
             scale = 2 * float(corpus.sq_norms.max())
             scaled = float((kd ** 2 - pd ** 2)[same].abs().max()) / scale
             tol = 1e-5
-        check(agree >= 0.999, f"greedy_descent {metric}: endpoints agree "
-              f"{agree} < 0.999")
-        check(scaled <= tol, f"greedy_descent {metric}: distance error "
-              f"{scaled} > {tol}")
+        label = f"greedy_descent {metric} B={b}"
+        check(agree >= 0.999, f"{label}: endpoints agree {agree} < 0.999")
+        check(scaled <= tol, f"{label}: distance error {scaled} > {tol}")
         check(bool(torch.isfinite(kd).all()) and bool((kc >= 0).all()),
-              f"greedy_descent {metric}: non-finite or -1")
+              f"{label}: non-finite or -1")
         steps = sum(int(rows.numel()) for _, rows in visits)
+        per_query = sum(s for _, s in ablate.walk_steps(
+            torch, dict(q=qb, q_sq=q_sq, cur=cur, d0=d0, upper=upper,
+                        vectors=vectors, v_sq=corpus.sq_norms),
+            b, metric)[0]).float()
+        check(int(per_query.sum()) == steps,
+              f"{label}: {int(per_query.sum())} steps counted, {steps} "
+              f"visited")
+        longest = int(per_query.max())
         ms = time_ms(lambda: descent.greedy_descent(*args, metric))
+        b2b_ms = burst_ms(lambda: descent.greedy_descent(*args, metric))
         plain_ms = time_ms(lambda: descent.greedy_descent_plain(*args, metric),
                            reps=3, warmup=1)
         # the yardstick: one gather + einsum of the first step, in the
         # kernel's dtype, times the batch steps the plain loop took
         nb = upper[-1][cur.long()].clamp(min=0)
-        qc = q.to(vectors.dtype)
+        qc = qb.to(vectors.dtype)
         lib_ms = time_ms(lambda: torch.einsum(
             "bd,bmd->bm", qc, vectors[nb])) * len(visits)
         bms, by = bound(descent_bytes(torch, upper, vectors, visits, b),
                         2 * steps * upper.shape[2] * vectors.shape[1],
                         BF16_OPS_S)
         descent.greedy_descent.launches = launches
+        plan = descent.plan(upper.shape[2], vectors.shape[1],
+                            vectors.element_size())
         say("device_loop", stage="descent", metric=metric,
             dtype=str(vectors.dtype).split(".")[-1],
             shape=f"B={b},L={upper.shape[0]},M={upper.shape[2]},"
             f"D={vectors.shape[1]},N_pad={vectors.shape[0]}",
             endpoints_identical=agree, bar=0.999, max_abs_err=err,
             held_err=scaled, tol=tol,
-            steps_per_query=steps / b, batch_steps=len(visits),
-            kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-            bound_by=by, **(ptxas_fields("greedy_descent")
-                            if metric == "cosine" else {}))
-        if metric == "cosine":
+            steps_per_query=steps / b,
+            steps_p99=float(torch.sort(per_query).values[
+                min(b - 1, int(0.99 * b))]),
+            steps_max=longest, batch_steps=len(visits),
+            round_trip_us=round_trip_us,
+            latency_floor_ms=longest * round_trip_us / 1e3,
+            kernel_ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bms, bound_by=by,
+            shared_memory_bytes=plan.smem,
+            **descent_ptxas(metric, vectors.dtype, plan))
+        if metric == "cosine" and b == 1024:
             records["greedy_descent"] = dict(
                 name="greedy_descent", route="cuda",
                 source="hnsw_tpu_torch/csrc/descent.cu",

@@ -34,6 +34,16 @@ IDS = [f"v{i}" for i in range(300)]
 CPU = dict(device="cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("kind", ["flat", "brute_force", "hnsw", "ultra-fast",
                                   ":pure_hnsw"])
 def test_build_index_dispatch_and_aliases(kind):

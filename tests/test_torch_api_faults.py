@@ -46,6 +46,16 @@ NO_SAME_PATH_TWIN = {"ops/pallas_hop.py", "ops/pallas_scan.py",
                      "utils/cache.py"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _defined(path: pathlib.Path) -> set:
     """Public names a module defines at its top level."""
     out = set()

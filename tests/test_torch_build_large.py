@@ -52,6 +52,16 @@ REFINE = dict(cap=32, k_cand=48, metric="cosine", cluster_size=512,
               n_probe_clusters=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def reference_reverse(monkeypatch):
     """The port's builder with the reference's _reverse_device."""

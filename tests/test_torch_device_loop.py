@@ -42,6 +42,16 @@ from tests.conftest import make_clustered
 N, DIM, NQ, K, EF = 1000, 64, 120, 10, 48
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _parity(jd, jr, td, tr, metric, data):
     jd, jr, td, tr = (np.asarray(x) for x in (jd, jr, td, tr))
     same = (jr == tr).all(axis=1)

@@ -27,6 +27,16 @@ from tests.torch_support import recall
 METRICS = ["cosine", "euclidean", "dot"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(data, metric, **kw):
     j = JFlatIndex(JCorpus.from_array(data, metric=metric), **kw)
     t = FlatIndex(Corpus.from_array(data, metric=metric, device="cpu"), **kw)

@@ -32,6 +32,16 @@ pytestmark = pytest.mark.gpu
 KEY_TOL = 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA card; skips where there is none. Decided when the test
@@ -556,13 +566,19 @@ def _descent_inputs(d, m, dtype, metric, device, duplicates=False):
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d,m,dup", [(64, 8, False), (128, 16, False),
-                                     (768, 16, False), (128, 16, True)])
+                                     (768, 16, False), (128, 16, True),
+                                     (768, 32, False), (128, 10, False),
+                                     (2064, 16, False), (64, 200, False),
+                                     (16, 16, False)])
 def test_descent_kernel_matches_plain_version(d, m, dup, dtype, metric,
                                               cuda_device):
     """The walk's endpoints agree with the plain batch loop for >= 0.99 of
     queries (f32 sums in another order can flip only near-ties; exact ties
     of duplicate rows go to the first neighbour in both), and the distances
-    where they agree to 1e-5 of the largest; one launch a call."""
+    where they agree to 1e-5 of the largest; one launch a call. M = 10
+    moves its ids 4 bytes at a time; D = 2,064 stages a neighbourhood in
+    batches of rows; M = 200 fetches the next step's ids after the argmin
+    (ops/descent.py:plan); D = 16 leaves lanes of a row idle."""
     args = _descent_inputs(d, m, dtype, metric, cuda_device, dup)
     before = descent.greedy_descent.launches
     kc, kd = descent.greedy_descent(*args, metric)

@@ -48,6 +48,16 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 N, DIM, NQ = 1000, 64, 200
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(metric):
     x = make_clustered(N, DIM, k=12, seed=31)
     if metric == "cosine":

@@ -33,6 +33,16 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 HOP_CU = REPO / "hnsw_tpu_torch" / "csrc" / "hop.cu"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _constants():
     code = HOP_CU.read_text()
     out = {}

@@ -36,6 +36,16 @@ CACHE_KEYS = ("jax_compilation_cache_dir",
               "jax_persistent_cache_min_compile_time_secs")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _load(name):
     saved = {k: getattr(jax.config, k) for k in CACHE_KEYS}
     spec = importlib.util.spec_from_file_location(

@@ -29,6 +29,16 @@ from tests.conftest import make_clustered
 BIG = 1e30
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _same(jax_out, torch_out):
     for j, t in zip(jax_out, torch_out):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))

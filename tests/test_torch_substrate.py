@@ -31,6 +31,16 @@ METRICS = ["cosine", "euclidean", "dot"]
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.asarray(x))
 

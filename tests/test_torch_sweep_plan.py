@@ -49,6 +49,16 @@ BIG = 1e30
 TILE = 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def thread_columns(lane: int) -> list:
     """The tile columns of a consumer thread: col0 + column_of(b), b < 32,
     col0 = 2 (lane % 4), column_of(b) = 64 (b / 16) + 8 (b % 16 / 2) + b % 2

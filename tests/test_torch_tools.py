@@ -14,6 +14,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from hnsw_tpu.apps.shell import SearchShell as JShell
 from hnsw_tpu.io import loader as jloader
@@ -26,6 +27,16 @@ from hnsw_tpu_torch.utils import Timer, timed
 from hnsw_tpu_torch.utils.profiling import annotate, profile_trace
 
 CPU = dict(device="cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads: many small CPU operators run about as fast, and the
+    test workers that share the host keep their cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _write_bible(path, n=60, d=24):
