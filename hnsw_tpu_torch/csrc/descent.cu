@@ -51,7 +51,7 @@
 //   row with id < 0, on its own mbarrier whose expect_tx is the bytes
 //   issued; rows past kRowSmem bytes are staged in batches. (b) is faster
 //   at B = 1,024 and at B = 32 although its 124 registers hold four queries
-//   an SM where (a) holds eight (PERF.md, PR 15).
+//   an SM where (a) holds eight (PERF.md, section 6).
 // - Scoring. Lanes are mapped to (row, 16-byte chunk): `lanes` lanes share
 //   a row (its chunks rounded up to a power of two, at least kMinLanes, at
 //   most 32), 32 / lanes rows a warp-step, each lane taking chunks sub,

@@ -357,7 +357,7 @@ def test_chip_smoke_names_the_block_kernel():
                   "fetch_ids(", "cp_async_wait_all()", "__syncthreads()"):
         assert piece in body, piece
     assert "wgmma" not in CODE
-    # the PR 14 loop, one warp a query, is gone
+    # the earlier loop, one warp a query, is gone
     assert "descent_kernel(" not in CODE.replace("descent_block_kernel(", "")
     assert (descent.STAGED, descent.ROW_SMEM, descent.SMEM_MAX,
             descent.HEAD) == (STAGED, ROW_SMEM, SMEM_MAX, HEAD)
