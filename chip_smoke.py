@@ -21,7 +21,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      version from the graph's entry for 1,024 queries (bf16 shadow, cosine;
      f32 corpus, euclidean) and 32 (bf16, cosine): endpoints identical >=
      0.999, the steps a query takes (mean, p99, max), the latency floor
-     (the longest walk times one dependent L2 round trip), one call and
+     (the longest walk times the recorded L2 round trip), one call and
      back to back, bound, yardstick, and the ptxas registers, spills and
      shared memory of the instantiation run; HNSWIndex's search replayed
      from its captured CUDA graph against the eager sync-free search (bf16
@@ -760,7 +760,7 @@ def descent_bytes(torch, adj_upper, vectors, visits, b: int) -> int:
     out."""
     n_pad, m = adj_upper.shape[1], adj_upper.shape[2]
     keys = torch.unique(torch.cat([l * n_pad + rows.long()
-                                   for l, rows in visits]))
+                                   for l, _, rows in visits]))
     nb = adj_upper[keys // n_pad, keys % n_pad]
     rows = torch.unique(nb[nb >= 0])
     d = vectors.shape[1]
@@ -769,25 +769,20 @@ def descent_bytes(torch, adj_upper, vectors, visits, b: int) -> int:
             + b * (d * 4 + 4 + 8 + 8))
 
 
-def _script(name: str):
-    """scripts/<name>.py of this checkout, loaded by its path."""
-    import importlib.util
-    import pathlib
-    path = pathlib.Path(__file__).resolve().parent / "scripts" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+# one dependent L2 round trip on the H100 (NVIDIA H100 80GB HBM3, 700 W), in
+# microseconds: one warp chasing the lowest upper layer of this graph
+# (`python3 scripts/descent_ablate.py walk`; PERF.md, section 6)
+L2_ROUND_TRIP_US = 0.1668
 
 
-def descent_ptxas(metric: str, dtype, plan) -> dict:
-    """Registers and spill bytes of the descent instantiation that this
-    dtype, metric and plan run (its template arguments: the value type,
-    the metric code, the chunks a lane holds)."""
+def descent_ptxas(metric: str, vectors) -> dict:
+    """Registers and spill bytes of the descent instantiation that phase
+    4b's walks run (its template arguments: the value type, the metric
+    code, the chunks a lane holds: at D = 768 a row has 32 lanes, so three
+    of bf16, six of f32)."""
     from hnsw_tpu_torch.ops import _cuda
-    nc = next(n for top, n in ((1, 1), (3, 3), (6, 6), (None, 0))
-              if top is None or plan.per_lane <= top)
-    value = "13__nv_bfloat16" if dtype.itemsize == 2 else "f"
+    nc = vectors.shape[1] * vectors.element_size() // 16 // 32
+    value = "13__nv_bfloat16" if vectors.element_size() == 2 else "f"
     piece = (f"20descent_block_kernelI{value}Li{METRIC_CODES[metric]}E"
              f"Li{nc}E")
     found = [v for k, v in _cuda.kernel_resources(
@@ -802,19 +797,16 @@ def check_descent_kernel(torch, index, q, records):
     """D1 against its plain version on phase 4's graph at full width: every
     query walks from the graph's entry, with the bf16 shadow (cosine, the
     main path's) at B=1,024 and B=32, and with the f32 corpus (euclidean)
-    at B=1,024; the steps a query takes (scripts/descent_ablate.py's count
-    of the plain walk), the latency floor (the longest walk's steps times
-    one dependent L2 round trip, from that script's pointer chase), one
-    call and back to back. Launches made here are not counted."""
+    at B=1,024; the steps a query takes (from the plain walk's visits), the
+    latency floor (the longest walk's steps times the recorded L2 round
+    trip), one call and back to back. Launches made here are not
+    counted."""
     from hnsw_tpu_torch.bench.kernels import burst_ms
     from hnsw_tpu_torch.ops import descent
     from hnsw_tpu_torch.ops.distance import shadow_score
 
-    ablate = _script("descent_ablate")
     g, corpus = index.graph, index.corpus
     upper = g.adj_upper
-    round_trip_us, _ = ablate.chase_round_trip(
-        torch, dict(upper=upper, entry=int(g.entry)))
     for metric, dtype, b in (("cosine", torch.bfloat16, 1024),
                              ("euclidean", torch.float32, 1024),
                              ("cosine", torch.bfloat16, 32)):
@@ -846,14 +838,9 @@ def check_descent_kernel(torch, index, q, records):
         check(scaled <= tol, f"{label}: distance error {scaled} > {tol}")
         check(bool(torch.isfinite(kd).all()) and bool((kc >= 0).all()),
               f"{label}: non-finite or -1")
-        steps = sum(int(rows.numel()) for _, rows in visits)
-        per_query = sum(s for _, s in ablate.walk_steps(
-            torch, dict(q=qb, q_sq=q_sq, cur=cur, d0=d0, upper=upper,
-                        vectors=vectors, v_sq=corpus.sq_norms),
-            b, metric)[0]).float()
-        check(int(per_query.sum()) == steps,
-              f"{label}: {int(per_query.sum())} steps counted, {steps} "
-              f"visited")
+        steps = sum(int(rows.numel()) for _, _, rows in visits)
+        per_query = torch.bincount(torch.cat([who for _, who, _ in visits]),
+                                   minlength=b).float()
         longest = int(per_query.max())
         ms = time_ms(lambda: descent.greedy_descent(*args, metric))
         b2b_ms = burst_ms(lambda: descent.greedy_descent(*args, metric))
@@ -869,8 +856,6 @@ def check_descent_kernel(torch, index, q, records):
                         2 * steps * upper.shape[2] * vectors.shape[1],
                         BF16_OPS_S)
         descent.greedy_descent.launches = launches
-        plan = descent.plan(upper.shape[2], vectors.shape[1],
-                            vectors.element_size())
         say("device_loop", stage="descent", metric=metric,
             dtype=str(vectors.dtype).split(".")[-1],
             shape=f"B={b},L={upper.shape[0]},M={upper.shape[2]},"
@@ -881,12 +866,13 @@ def check_descent_kernel(torch, index, q, records):
             steps_p99=float(torch.sort(per_query).values[
                 min(b - 1, int(0.99 * b))]),
             steps_max=longest, batch_steps=len(visits),
-            round_trip_us=round_trip_us,
-            latency_floor_ms=longest * round_trip_us / 1e3,
+            round_trip_us=L2_ROUND_TRIP_US, round_trip_from="recorded",
+            latency_floor_ms=longest * L2_ROUND_TRIP_US / 1e3,
             kernel_ms=ms, back_to_back_ms=b2b_ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=bms, bound_by=by,
-            shared_memory_bytes=plan.smem,
-            **descent_ptxas(metric, vectors.dtype, plan))
+            shared_memory_bytes=descent.shared_bytes(
+                upper.shape[2], vectors.shape[1], vectors.element_size()),
+            **descent_ptxas(metric, vectors))
         if metric == "cosine" and b == 1024:
             records["greedy_descent"] = dict(
                 name="greedy_descent", route="cuda",

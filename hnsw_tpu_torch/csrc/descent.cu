@@ -41,17 +41,13 @@
 //   row loads go out at once. The ids sit in two buffers that the steps
 //   alternate. Where M x M ids would not fit, the next row is fetched after
 //   the argmin (`ahead` 0: a second round trip a step).
-// - The rows (kRows). Variant (b), the one built: each lane loads its
-//   chunks of its warp's rows straight into registers, all G warp-steps at
-//   once (four rows a warp and 12 loads of 16 bytes a lane at M = 16,
-//   D = 768 bf16: the whole neighbourhood in flight), through L1, where the
-//   upper layers' shared rows hit. Variant (a), kept for the ablation: each
-//   warp issues one cp.async.bulk copy a row of its own (D x 2 or 4 bytes,
-//   a multiple of 16 at a 16-byte offset) into shared memory, none for a
-//   row with id < 0, on its own mbarrier whose expect_tx is the bytes
-//   issued; rows past kRowSmem bytes are staged in batches. (b) is faster
-//   at B = 1,024 and at B = 32 although its 124 registers hold four queries
-//   an SM where (a) holds eight (PERF.md, section 6).
+// - The rows. Each lane loads its chunks of its warp's rows straight into
+//   registers, all G warp-steps at once (four rows a warp and 12 loads of
+//   16 bytes a lane at M = 16, D = 768 bf16: the whole neighbourhood in
+//   flight), through L1, where the upper layers' shared rows hit. This is
+//   faster at B = 1,024 and at B = 32 than bulk copies of the rows into
+//   shared memory on an mbarrier, although its 118 registers hold four
+//   queries an SM where the copies' 64 held eight (PERF.md, section 6).
 // - Scoring. Lanes are mapped to (row, 16-byte chunk): `lanes` lanes share
 //   a row (its chunks rounded up to a power of two, at least kMinLanes, at
 //   most 32), 32 / lanes rows a warp-step, each lane taking chunks sub,
@@ -79,90 +75,40 @@ namespace {
 
 constexpr int kWarps = 4;                 // warps a query (a block)
 constexpr int kThreads = 32 * kWarps;
-// the rows: 0 bulk copies into shared memory (variant a), 1 registers
-// (variant b; scripts/descent_ablate.py times both)
-constexpr int kRows = 1;
-constexpr bool kStaged = kRows != 1;      // the rows pass through shared memory
-constexpr int kRowSmem = 49152;           // bytes of rows a batch stages
+// blocks an SM must hold (the launch bounds): ptxas then has 128 registers
+// a thread, and uses about 118 at D = 768 bf16
+constexpr int kMinBlocks = 4;
 constexpr int kSmemMax = 232448;          // shared memory a block can have
-constexpr int kHead = 8 * kWarps;         // an mbarrier a warp
 constexpr int kMinLanes = 4;              // lanes a row at least: the G rows a lane-group halves
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kBig = 1e30f;             // ops/distance.py BIG
 
-// One launch's plan (ops/descent.py:plan computes the same). Shared memory:
-// an mbarrier a warp, then from kHead two buffers (by step parity) of the
-// rows' distance keys and ids, two buffers of id rows from ids_off
-// (`ahead`: M + 1 rows of M each, else one), the staged rows from rows_off.
+// One launch's plan. Shared memory: two buffers (by step parity) of the
+// rows' distance keys and ids, then from ids_off two buffers of id rows
+// (`ahead`: M + 1 rows of M each, else one).
 struct Plan {
     int chunks;    // 16-byte chunks of a row
     int lanes;     // lanes that share a row
     int per_lane;  // chunks a lane takes of each row
     int ahead;     // 1: the next step's ids are fetched with the step's rows
-    int cap;       // rows a batch scores (all M unless staging runs out)
     int ids_off;   // byte offset of the id buffers
-    int rows_off;  // byte offset of the staged rows (kStaged)
     int smem;      // dynamic shared memory of a block
     int vec;       // the id rows move in 16-byte pieces of 4 ids, else 1
     int per_row;   // pieces of an id row
     int dk, dc;    // kThreads pieces on, in rows and pieces
 };
 
-// warp-steps a warp scores at once, by chunks a lane and value bytes: from
-// device memory enough that a warp's share of the neighbourhood is in
-// flight (four rows, 12 loads of 16 bytes a lane at D = 768 bf16); from
-// shared memory one or two (its loads are short, and registers are kept to
-// 64 a thread)
+// warp-steps a warp scores at once, by chunks a lane and value bytes:
+// enough that a warp's share of the neighbourhood is in flight (four rows,
+// 12 loads of 16 bytes a lane at D = 768 bf16)
 __host__ __device__ constexpr int batch_steps(int nc, int bytes) {
-    return kStaged ? (nc == 6 ? 1 : 2) : (nc == 6 ? (bytes == 2 ? 1 : 2) : 4);
-}
-
-// blocks an SM must hold (the launch bounds): with the rows in registers
-// four (ptxas then has 128 registers a thread, and uses about 125 at D =
-// 768 bf16); staged, eight, a whole batch of 1,024 on 132 SMs, but four
-// where six chunks a lane need more than 64 registers
-__host__ __device__ constexpr int min_blocks(int nc) {
-    return kStaged && nc != 6 ? 8 : 4;
+    return nc == 6 ? (bytes == 2 ? 1 : 2) : 4;
 }
 
 template <typename T> struct Vals { static constexpr int n = 16 / sizeof(T); };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// `bytes` (a multiple of 16) from global src to shared dst (both 16-byte
-// aligned), counted on the barrier's transaction count when they land
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-        : "memory");
 }
 
 template <int BYTES>
@@ -275,23 +221,21 @@ __device__ __forceinline__ float key_value(uint32_t k) {
 }
 
 // the rows of G warp-steps from s0 that a lane scores (warp-step s0 + g
-// kWarps, the lane's slot in it), their ids (-1 past the batch's nr rows)
-// and norms
+// kWarps, the lane's slot in it), their ids (-1 past the M rows) and norms
 template <int G>
-__device__ __forceinline__ void rows_of(int s0, int warps, int R, int slot, int nr,
-                                        const int* ids, const float* __restrict__ v_sq,
-                                        int N_pad, int (&id)[G], int (&rr)[G],
-                                        float (&csq)[G]) {
+__device__ __forceinline__ void rows_of(int s0, int R, int slot, int M, const int* ids,
+                                        const float* __restrict__ v_sq, int N_pad,
+                                        int (&id)[G], int (&rr)[G], float (&csq)[G]) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-        rr[g] = (s0 + g * warps) * R + slot;
-        id[g] = rr[g] < nr ? ids[rr[g]] : -1;
+        rr[g] = (s0 + g * kWarps) * R + slot;
+        id[g] = rr[g] < M ? ids[rr[g]] : -1;
         csq[g] = id[g] >= 0 ? __ldg(v_sq + clamp_row(id[g], N_pad)) : 0.f;
     }
 }
 
 template <typename T, int METRIC, int NC>
-__global__ void __launch_bounds__(kThreads, min_blocks(NC))
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 descent_block_kernel(const float* __restrict__ queries, const float* __restrict__ q_sq,
                      const int* __restrict__ cur_in, const float* __restrict__ d_in,
                      const int* __restrict__ adj, const T* __restrict__ vectors,
@@ -306,16 +250,14 @@ descent_block_kernel(const float* __restrict__ queries, const float* __restrict_
     const int rlog = 6 - __ffs(plan.lanes);   // log2 of the rows a warp-step
     const int slot = lane >> (5 - rlog);
     const int R = 1 << rlog;
-    const int row_bytes = D * (int)sizeof(T);
+    const int wsteps = (M + R - 1) >> rlog;
     const float* qrow = queries + (long long)b * D;
-    const uint32_t bar = smem_u32(smem) + 8 * warp;   // this warp's rows land on it
     // two buffers, by step parity, of each row's distance key and id
-    uint32_t* keys = reinterpret_cast<uint32_t*>(smem + kHead);
+    uint32_t* keys = reinterpret_cast<uint32_t*>(smem);
     int* kid = reinterpret_cast<int*>(keys + 2 * M);
     int* ids_buf = reinterpret_cast<int*>(smem + plan.ids_off);
     const int slots = plan.ahead ? M + 1 : 1;
     const int down = plan.ahead ? M : 0;   // the row of the layer below
-    unsigned char* rows = smem + plan.rows_off;
 
     uint4 q[NCR];
     if constexpr (NC > 0) {
@@ -328,10 +270,6 @@ descent_block_kernel(const float* __restrict__ queries, const float* __restrict_
     int l = L - 1;
 
     const int first = ((int)threadIdx.x / plan.per_row) << 16 | (int)threadIdx.x % plan.per_row;
-    if (kRows == 0 && lane == 0) {
-        mbar_init(bar, 1);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
     {   // the first step's ids: adj[L-1, cur]
         const int* src = adj + ((long long)l * N_pad + clamp_row(cur, N_pad)) * M;
         fetch_ids(ids_buf + down * M, 1, M, plan, first, [&](int) { return src; });
@@ -341,7 +279,6 @@ descent_block_kernel(const float* __restrict__ queries, const float* __restrict_
 
     const int* ids = ids_buf + down * M;
     int p = 0;
-    uint32_t phase = 0;
     while (true) {
         // the query's words are opaque to the compiler at each step, so it
         // keeps them packed rather than holding their values unpacked
@@ -352,108 +289,70 @@ descent_block_kernel(const float* __restrict__ queries, const float* __restrict_
         const int* adj_l = adj + (long long)l * N_pad * M;
         uint32_t* key_p = keys + p * M;
         int* kid_p = kid + p * M;
+        if (plan.ahead) {
+            // the next step's ids: each neighbour's row on this layer, and
+            // this node's on the layer below
+            const int* below = adj_l - (long long)N_pad * M + (long long)clamp_row(cur, N_pad) * M;
+            fetch_ids(next, l > 0 ? M + 1 : M, M, plan, first, [&](int k) {
+                return k < M ? adj_l + (long long)clamp_row(ids[k], N_pad) * M : below;
+            });
+        }
+        // the rows of the warp's warp-steps, G at a time
+        int id[G], rr[G];
+        float csq[G];
 #pragma unroll 1
-        for (int r0 = 0; r0 < M; r0 += plan.cap) {
-            const int nr = min(plan.cap, M - r0);
-            const int wsteps = (nr + R - 1) >> rlog;
-            if (kRows == 0) {
-                // the warp's own rows (those of its warp-steps), one bulk
-                // copy each that exists, on its own barrier's phase: row
-                // x of the warp is row t of warp-step warp + (x / R) kWarps
-                const int mine = ((wsteps - warp + kWarps - 1) / kWarps) << rlog;
-                int count = 0;
+        for (int s0 = warp; s0 < wsteps; s0 += kWarps * G) {
+            rows_of<G>(s0, R, slot, M, ids, v_sq, N_pad, id, rr, csq);
+            float acc[G];
+#pragma unroll
+            for (int g = 0; g < G; ++g) acc[g] = 0.f;
+            // NC = 0: one chunk a pass, its query values read per pass
+            const int passes = NC > 0 ? 1 : plan.per_lane;
 #pragma unroll 1
-                for (int x0 = 0; x0 < mine; x0 += 32) {
-                    const int x = x0 + lane;
-                    const int r = (warp + (x >> rlog) * kWarps) * R + (x & (R - 1));
-                    count += __popc(__ballot_sync(kFull, x < mine && r < nr && ids[r0 + r] >= 0));
-                }
-                if (lane == 0) mbar_expect_tx(bar, (uint32_t)count * row_bytes);
-                __syncwarp();
-#pragma unroll 1
-                for (int x = lane; x < mine; x += 32) {
-                    const int r = (warp + (x >> rlog) * kWarps) * R + (x & (R - 1));
-                    const int id = r < nr ? ids[r0 + r] : -1;
-                    if (id >= 0)
-                        bulk_load(smem_u32(rows + r * row_bytes),
-                                  vectors + (long long)clamp_row(id, N_pad) * D, row_bytes, bar);
-                }
-            }
-            if (r0 == 0 && plan.ahead) {
-                // the next step's ids: each neighbour's row on this layer,
-                // and this node's on the layer below
-                const int* below = adj_l - (long long)N_pad * M + (long long)clamp_row(cur, N_pad) * M;
-                fetch_ids(next, l > 0 ? M + 1 : M, M, plan, first, [&](int k) {
-                    return k < M ? adj_l + (long long)clamp_row(ids[k], N_pad) * M : below;
-                });
-            }
-            // the rows of the warp's first G warp-steps, and their norms,
-            // before the wait
-            int id[G], rr[G];
-            float csq[G];
-            rows_of<G>(warp, kWarps, R, slot, nr, ids + r0, v_sq, N_pad, id, rr, csq);
-            if (kRows == 0) {
-                mbar_wait(bar, phase);
-                phase ^= 1;
-            }
-#pragma unroll 1
-            for (int s0 = warp; s0 < wsteps; s0 += kWarps * G) {
-                if (s0 != warp) rows_of<G>(s0, kWarps, R, slot, nr, ids + r0, v_sq, N_pad, id, rr, csq);
-                float acc[G];
+            for (int ps = 0; ps < passes; ++ps) {
+                if constexpr (NC == 0) q[0] = load_query<T>(qrow, sub + ps * plan.lanes, plan.chunks);
+                uint4 raw[G][NCR];
 #pragma unroll
-                for (int g = 0; g < G; ++g) acc[g] = 0.f;
-                // NC = 0: one chunk a pass, its query values read per pass
-                const int passes = NC > 0 ? 1 : plan.per_lane;
-#pragma unroll 1
-                for (int ps = 0; ps < passes; ++ps) {
-                    if constexpr (NC == 0) q[0] = load_query<T>(qrow, sub + ps * plan.lanes, plan.chunks);
-                    uint4 raw[G][NCR];
+                for (int g = 0; g < G; ++g) {
+                    const uint4* src =
+                        reinterpret_cast<const uint4*>(vectors + (long long)clamp_row(id[g], N_pad) * D);
 #pragma unroll
-                    for (int g = 0; g < G; ++g) {
-                        const uint4* src =
-                            kStaged ? reinterpret_cast<const uint4*>(rows + rr[g] * row_bytes)
-                                    : reinterpret_cast<const uint4*>(
-                                          vectors + (long long)clamp_row(id[g], N_pad) * D);
-#pragma unroll
-                        for (int i = 0; i < NCR; ++i) {
-                            const int c = sub + (NC > 0 ? i : ps) * plan.lanes;
-                            const bool ok = id[g] >= 0 && c < plan.chunks;
-                            raw[g][i] = !ok ? make_uint4(0u, 0u, 0u, 0u)
-                                        : kStaged ? src[c] : __ldg(src + c);
-                        }
-                    }
-#pragma unroll
-                    for (int i = 0; i < NCR; ++i)
-#pragma unroll
-                        for (int g = 0; g < G; ++g) acc[g] = dot_chunk<T>(q[i], raw[g][i], acc[g]);
-                }
-                // each row's sum over its lanes, halving: at the first
-                // levels a lane keeps the half of the G rows its lane bit
-                // names and trades the other half with its partner, so the
-                // lanes sub / (lanes / G) == g end with row g's sum (and its
-                // id, norm and place), and the rest of the levels add
-#pragma unroll
-                for (int half = G / 2, o = plan.lanes >> 1; half >= 1; half >>= 1, o >>= 1) {
-                    const bool up = sub & o;
-#pragma unroll
-                    for (int j = 0; j < half; ++j) {
-                        const float send = up ? acc[j] : acc[j + half];
-                        acc[j] = (up ? acc[j + half] : acc[j]) + __shfl_xor_sync(kFull, send, o);
-                        id[j] = up ? id[j + half] : id[j];
-                        rr[j] = up ? rr[j + half] : rr[j];
-                        csq[j] = up ? csq[j + half] : csq[j];
+                    for (int i = 0; i < NCR; ++i) {
+                        const int c = sub + (NC > 0 ? i : ps) * plan.lanes;
+                        const bool ok = id[g] >= 0 && c < plan.chunks;
+                        raw[g][i] = ok ? __ldg(src + c) : make_uint4(0u, 0u, 0u, 0u);
                     }
                 }
-#pragma unroll 1
-                for (int o = plan.lanes / (2 * G); o > 0; o >>= 1)
-                    acc[0] += __shfl_xor_sync(kFull, acc[0], o);
-                // the first lane of each row computes its distance, once, as
-                // a key whose order is the float's
-                if ((sub & (plan.lanes / G - 1)) == 0 && rr[0] < nr) {
-                    key_p[r0 + rr[0]] =
-                        order_key(id[0] >= 0 ? distance<METRIC>(acc[0], qsq, csq[0]) : kBig);
-                    kid_p[r0 + rr[0]] = id[0];
+#pragma unroll
+                for (int i = 0; i < NCR; ++i)
+#pragma unroll
+                    for (int g = 0; g < G; ++g) acc[g] = dot_chunk<T>(q[i], raw[g][i], acc[g]);
+            }
+            // each row's sum over its lanes, halving: at the first levels a
+            // lane keeps the half of the G rows its lane bit names and
+            // trades the other half with its partner, so the lanes
+            // sub / (lanes / G) == g end with row g's sum (and its id, norm
+            // and place), and the rest of the levels add
+#pragma unroll
+            for (int half = G / 2, o = plan.lanes >> 1; half >= 1; half >>= 1, o >>= 1) {
+                const bool up = sub & o;
+#pragma unroll
+                for (int j = 0; j < half; ++j) {
+                    const float send = up ? acc[j] : acc[j + half];
+                    acc[j] = (up ? acc[j + half] : acc[j]) + __shfl_xor_sync(kFull, send, o);
+                    id[j] = up ? id[j + half] : id[j];
+                    rr[j] = up ? rr[j + half] : rr[j];
+                    csq[j] = up ? csq[j + half] : csq[j];
                 }
+            }
+#pragma unroll 1
+            for (int o = plan.lanes / (2 * G); o > 0; o >>= 1)
+                acc[0] += __shfl_xor_sync(kFull, acc[0], o);
+            // the first lane of each row computes its distance, once, as a
+            // key whose order is the float's
+            if ((sub & (plan.lanes / G - 1)) == 0 && rr[0] < M) {
+                key_p[rr[0]] = order_key(id[0] >= 0 ? distance<METRIC>(acc[0], qsq, csq[0]) : kBig);
+                kid_p[rr[0]] = id[0];
             }
         }
         cp_async_wait_all();
@@ -498,7 +397,7 @@ descent_block_kernel(const float* __restrict__ queries, const float* __restrict_
     }
 }
 
-// ops/descent.py:plan, the same arithmetic; smem 0 where no plan fits
+// smem 0 where no plan fits
 Plan make_plan(int M, int D, int bytes) {
     Plan p;
     p.chunks = D * bytes / 16;
@@ -509,29 +408,16 @@ Plan make_plan(int M, int D, int bytes) {
     p.per_row = p.vec ? M / 4 : M;
     p.dk = kThreads / p.per_row;
     p.dc = kThreads - p.dk * p.per_row;
-    const long long row_bytes = (long long)D * bytes;
-    p.ids_off = kHead + (16 * M + 15) / 16 * 16;
+    p.ids_off = 16 * M;
+    p.smem = 0;
     for (p.ahead = 1; p.ahead >= 0; --p.ahead) {
-        const long long ids_end = p.ids_off + 2LL * (p.ahead ? M + 1 : 1) * M * 4;
-        const long long rows_off = (ids_end + 127) / 128 * 128;
-        long long cap = M, smem = ids_end;
-        if (kStaged) {
-            cap = kRowSmem / row_bytes > 1 ? kRowSmem / row_bytes : 1;
-            if (cap > (kSmemMax - rows_off) / row_bytes) cap = (kSmemMax - rows_off) / row_bytes;
-            if (cap > M) cap = M;
-            smem = rows_off + cap * row_bytes;
-        }
-        if (cap >= 1 && smem <= kSmemMax) {
-            p.cap = (int)cap;
-            p.rows_off = (int)rows_off;
+        const long long smem = p.ids_off + 2LL * (p.ahead ? M + 1 : 1) * M * 4;
+        if (smem <= kSmemMax) {
             p.smem = (int)smem;
             return p;
         }
     }
     p.ahead = 0;
-    p.cap = 0;
-    p.rows_off = 0;
-    p.smem = 0;
     return p;
 }
 
@@ -544,9 +430,9 @@ int launch_metric(const float* queries, const float* q_sq, const int* cur_in, co
                   : k == 1 ? descent_block_kernel<T, METRIC, 3>
                   : k == 2 ? descent_block_kernel<T, METRIC, 6>
                            : descent_block_kernel<T, METRIC, 0>;
-    // shared memory above the 48 KB default, and the carveout that leaves
-    // the staged rows the SM's shared memory, set once per device and
-    // instantiation, at an eager call (never inside a graph capture)
+    // shared memory above the 48 KB default (a large M's id rows), set once
+    // per device and instantiation, at an eager call (never inside a graph
+    // capture)
     static bool sized[4][64];
     int dev = 0;
     cudaGetDevice(&dev);
@@ -556,9 +442,6 @@ int launch_metric(const float* queries, const float* q_sq, const int* cur_in, co
         if (err == cudaSuccess)
             err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        kSmemMax - (int)attr.sharedSizeBytes);
-        if (err == cudaSuccess && kStaged)
-            err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                       (int)cudaSharedmemCarveoutMaxShared);
         if (err != cudaSuccess) return (int)err;
         if (dev < 64) sized[k][dev] = true;
     }
@@ -617,4 +500,10 @@ extern "C" int greedy_descent_f32(const void* queries, const void* q_sq, const v
                                   int N_pad, int M, int D, int metric, void* stream) {
     return launch<float>(queries, q_sq, cur_in, d_in, adj, vectors, v_sq, cur_out, d_out, B, L,
                          N_pad, M, D, metric, stream);
+}
+
+// the dynamic shared memory of a block for M neighbours of rows of D values
+// of `bytes` bytes, or 0 where the kernel cannot take that M
+extern "C" int greedy_descent_shared_bytes(int M, int D, int bytes) {
+    return M > 0 ? make_plan(M, D, bytes).smem : 0;
 }

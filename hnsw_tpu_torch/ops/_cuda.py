@@ -76,6 +76,9 @@ SIGNATURES = {
                                 P),
         "greedy_descent_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                P),
+        # M, D, value bytes: the dynamic shared memory of a block, 0 where
+        # the kernel cannot take that M
+        "greedy_descent_shared_bytes": (I, I, I),
     },
     "probes.cu": {
         # v (or vT), q, part, out, B, N, D, kmajor, splits, stream

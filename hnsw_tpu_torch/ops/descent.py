@@ -6,16 +6,15 @@ layer inside the jitted search, not a Pallas kernel. On a CUDA tensor
 ``greedy_descent`` launches the hand-written kernel in ``csrc/descent.cu``:
 one block of four warps a query walks every layer from the top down, so the
 search needs no host round trip between steps, and each step has one
-dependent round trip to memory (``plan`` is its shared-memory layout). On a
-CPU tensor it runs the plain version below, a batch loop that asks the host
-each step whether any query still improves; the tests hold it against the
-JAX function and ``chip_smoke.py`` holds the kernel against it on the card.
+dependent round trip to memory. On a CPU tensor it runs the plain version
+below, a batch loop that asks the host each step whether any query still
+improves; the tests hold it against the JAX function and ``chip_smoke.py``
+holds the kernel against it on the card.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,60 +24,6 @@ from hnsw_tpu_torch.types import Metric
 
 METRIC_CODES = {Metric.COSINE: 0, Metric.EUCLIDEAN: 1, Metric.DOT: 2}
 
-# csrc/descent.cu's constants: the rows staged in shared memory (kStaged),
-# the bytes of rows a batch stages, the shared memory a block can have, the
-# warps a block, the fewest lanes that share a row, and the bytes before the
-# rows' distance keys (an mbarrier a warp)
-STAGED, ROW_SMEM, SMEM_MAX, WARPS, MIN_LANES = False, 49152, 232448, 4, 4
-HEAD = 8 * WARPS
-
-
-class Plan(NamedTuple):
-    """One launch's plan, as csrc/descent.cu:make_plan computes it."""
-    chunks: int     # 16-byte chunks of a row
-    lanes: int      # lanes that share a row
-    per_lane: int   # chunks a lane takes of each row
-    ahead: int      # 1: the next step's ids are fetched with the step's rows
-    cap: int        # rows a batch scores
-    ids_off: int    # byte offset of the two id buffers
-    rows_off: int   # byte offset of the staged rows
-    smem: int       # dynamic shared memory of a block
-    vec: int        # the id rows move in 16-byte pieces of 4 ids, else 1
-    per_row: int    # pieces of an id row
-    dk: int         # WARPS * 32 pieces on, in rows
-    dc: int         # and pieces
-
-
-@functools.lru_cache(maxsize=None)
-def plan(m: int, d: int, elem: int) -> Optional[Plan]:
-    """The kernel's plan for M neighbours of rows of d values of `elem`
-    bytes, or None where its shared memory would not fit a block: two
-    buffers of a neighbourhood's distance keys and ids, two buffers of id
-    rows (M + 1 rows of M when the next step's ids come ahead, else one)
-    and, staged, up to ROW_SMEM bytes of rows."""
-    chunks = d * elem // 16
-    lanes = MIN_LANES
-    while lanes < chunks and lanes < 32:
-        lanes *= 2
-    row_bytes = d * elem
-    ids_off = HEAD + (16 * m + 15) // 16 * 16
-    for ahead in (1, 0):
-        ids_end = ids_off + 2 * (m + 1 if ahead else 1) * m * 4
-        rows_off = -(-ids_end // 128) * 128
-        cap, smem = m, ids_end
-        if STAGED:
-            cap = min(max(ROW_SMEM // row_bytes, 1),
-                      (SMEM_MAX - rows_off) // row_bytes, m)
-            smem = rows_off + cap * row_bytes
-        if cap >= 1 and smem <= SMEM_MAX:
-            per_row = m // 4 if m % 4 == 0 else m
-            threads = 32 * WARPS
-            return Plan(chunks, lanes, -(-chunks // lanes), ahead, cap,
-                        ids_off, rows_off, smem, int(m % 4 == 0), per_row,
-                        threads // per_row, threads % per_row)
-    return None
-
-
 def _descend_layer(queries, q_sq, cur, cur_d, adj_l, vectors, v_sq, metric,
                    visits, layer):
     """One-probe greedy walk on one upper layer until no neighbour
@@ -86,7 +31,7 @@ def _descend_layer(queries, q_sq, cur, cur_d, adj_l, vectors, v_sq, metric,
     improving = torch.ones_like(cur, dtype=torch.bool)
     while bool(improving.any()):
         if visits is not None:
-            visits.append((layer, cur[improving]))
+            visits.append((layer, improving.nonzero()[:, 0], cur[improving]))
         nb = adj_l[cur]                                     # [B, M]
         valid = (nb >= 0) & improving[:, None]
         d = shadow_score(queries, torch.clamp(nb, min=0), vectors, v_sq,
@@ -104,9 +49,9 @@ def _descend_layer(queries, q_sq, cur, cur_d, adj_l, vectors, v_sq, metric,
 def greedy_descent_plain(queries, q_sq, cur, cur_d, adj_upper, vectors,
                          v_sq, metric, visits=None):
     """Plain version of greedy_descent: the batch walk of each layer, top
-    down, with a host sync a step. `visits`, a list, receives (layer, rows
-    of the queries that score a neighbourhood) for every step, for the
-    smoke script's byte count."""
+    down, with a host sync a step. `visits`, a list, receives (layer, the
+    queries that score a neighbourhood, the rows they score it at) for every
+    step, for the smoke script's steps and byte count."""
     metric = Metric.coerce(metric)
     q_sq = q_sq.reshape(-1, 1)
     for l in range(adj_upper.shape[0] - 1, -1, -1):
@@ -128,7 +73,8 @@ def _check(queries, q_sq, cur, cur_d, adj_upper, vectors, v_sq):
           and adj_upper.dtype == torch.int32 and adj_upper.dim() == 3
           and adj_upper.shape[1] == vectors.shape[0]
           and adj_upper.is_contiguous()
-          and plan(adj_upper.shape[2], d, vectors.element_size()) is not None
+          and shared_bytes(adj_upper.shape[2], d,
+                           vectors.element_size()) > 0
           and v_sq.dtype == torch.float32 and v_sq.numel() == vectors.shape[0]
           and q_sq.dtype == torch.float32 and q_sq.numel() == b
           and cur.dtype == torch.int32 and cur.numel() == b
@@ -155,6 +101,14 @@ def _check(queries, q_sq, cur, cur_d, adj_upper, vectors, v_sq):
 def _entry(name):
     """The C entry point `name` of descent.cu (built on first use)."""
     return getattr(_cuda.library("descent.cu"), name)
+
+
+@functools.lru_cache(maxsize=None)
+def shared_bytes(m: int, d: int, elem: int) -> int:
+    """The kernel's dynamic shared memory a block for M neighbours of rows
+    of d values of `elem` bytes, from csrc/descent.cu's own plan; 0 where
+    the ids of M neighbours do not fit a block."""
+    return _entry("greedy_descent_shared_bytes")(m, d, elem)
 
 
 def greedy_descent(queries, q_sq, cur, cur_d, adj_upper, vectors, v_sq,

@@ -5,7 +5,8 @@ shape of chip_smoke.py's phase 4b: the 31,173 x 768 embedding-like corpus
 queries walking every upper layer from the graph's entry over the bf16
 shadow.
 
-    python3 scripts/descent_ablate.py [stage ...] [--parent PATH] [--tree DIR]
+    python3 scripts/descent_ablate.py [stage ...] [--parent PATH] [--bulk PATH]
+                                      [--tree DIR]
 
 Stages (walk and kernels by default):
   walk    the walk of the plain version (greedy_descent_plain): the steps a
@@ -23,16 +24,19 @@ Stages (walk and kernels by default):
           events around the launch, host work included) and back to back
           (20 launches between two events), also for the f32 euclidean
           walk; then the variants of the design (VARIANTS below), each
-          csrc/descent.cu with one piece changed: the two ways of moving
-          the rows (`bulk`, variant (a); `registers`, (b)), the ids after
-          the argmin (`no_ahead`), two warps a query, fewer warp-steps a
-          batch, more blocks an SM, and two timing-only cuts: `loads_only`
-          walks the plain version's recorded path (the neighbourhood row
-          each step moved to) issuing the step's loads and folding each row
-          with one xor, with no products, reductions, distances or argmin;
-          `clocks` adds up thread 0's clock64 cycles a step in each phase
-          (issue, waiting for the rows, scoring, the barrier, the argmin,
-          the decision). Variants joined by "+" apply together.
+          csrc/descent.cu with one piece changed: the ids after the argmin
+          (`no_ahead`), two warps a query, fewer warp-steps a batch, more
+          blocks an SM, and two timing-only cuts: `loads_only` walks the
+          plain version's recorded path (the neighbourhood row each step
+          moved to) issuing the step's loads and folding each row with one
+          xor, with no products, reductions, distances or argmin; `clocks`
+          adds up thread 0's clock64 cycles a step in each phase (issue,
+          scoring, the barrier, the argmin, the decision). `bulk`, the
+          other way of moving the rows (each warp's rows copied by
+          cp.async.bulk into shared memory on an mbarrier), is built from
+          the kernel of commit 028c060, which held both ways behind its
+          constant kRows, at PATH (--bulk: `git archive 028c060
+          hnsw_tpu_torch/csrc/descent.cu | tar -x -C _chipdev/bulk`).
   insert  phase 5's wave insert (a stateful HNSW Index of 30,149 rows grown
           by 1,024), timed with the package of DIR (--tree; this checkout's
           by default), so that two trees compare in one call.
@@ -55,6 +59,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N, DIM, SEED = 31173, 768, 42
 PARENT = "_chipdev/parent/hnsw_tpu_torch/csrc/descent.cu"
+BULK = "_chipdev/bulk/hnsw_tpu_torch/csrc/descent.cu"
+# the edit that builds that source's bulk-copy rows
+BULK_EDIT = ("constexpr int kRows = 1;", "constexpr int kRows = 0;")
 
 # one warp following adj_upper[layer]: hop i loads adj[layer, cur, i % M]
 # (a row id of that layer, or -1, which restarts at `start`), all lanes the
@@ -99,7 +106,6 @@ def nvcc(name: str, text: str):
     from hnsw_tpu_torch.ops import _cuda
     out_dir = _cuda.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
-    name = name.replace("+", "_and_")
     cu = out_dir / f"{name}.cu"
     cu.write_text(text)
     lib = out_dir / f"lib{name}.so"
@@ -186,7 +192,7 @@ def walk_steps(torch, x, b, metric="cosine"):
         raise AssertionError("the counted walk ends elsewhere than the plain "
                              "version's")
     for l, steps in per_layer:
-        got = sum(int(rows.numel()) for vl, rows in visits if vl == l)
+        got = sum(int(rows.numel()) for vl, _, rows in visits if vl == l)
         if got != int(steps.sum()):
             raise AssertionError(f"layer {l}: {int(steps.sum())} steps "
                                  f"counted, the plain version's visits {got}")
@@ -250,21 +256,24 @@ def stage_walk(torch, x):
 
 
 # variants of csrc/descent.cu: (old, new) edits, each found once
-ROWS = "constexpr int kRows = "
 WARPS = "constexpr int kWarps = 4;"
-STEPS = "    return kStaged ? (nc == 6 ? 1 : 2) : (nc == 6 ? (bytes == 2 ? 1 : 2) : 4);"
+STEPS = "    return nc == 6 ? (bytes == 2 ? 1 : 2) : 4;"
+BOUNDS = "__launch_bounds__(kThreads, kMinBlocks)"
 AHEAD = "    for (p.ahead = 1; p.ahead >= 0; --p.ahead) {"
 KBIG = "constexpr float kBig = 1e30f;             // ops/distance.py BIG\n"
 P_DECL = "    int p = 0;\n"
 TOP = "        int* next = ids_buf + (p ^ 1) * slots * M;\n"
-SCORE = "            for (int s0 = warp; s0 < wsteps; s0 += kWarps * G) {\n"
+ROWS = "        // the rows of the warp's warp-steps, G at a time\n"
 BARRIER = "        cp_async_wait_all();\n        __syncthreads();\n        // every warp takes"
 ARGMIN = "        for (int j = lane; j < M; j += 32)\n            if (key_p[j] < key"
 MOVE = "        const bool move = rmin < (uint32_t)M && best_d < cd;   // strictly nearer\n"
 TAKE = "            cur = kid_p[rmin];\n"
 NEXT = "            ids = next + (move ? (int)rmin : down) * M;\n"
-WAIT = "            if (kRows == 0) {\n                mbar_wait(bar, phase);\n"
 OUT = "    if (threadIdx.x == 0) {\n        cur_out[b] = cur;\n"
+DOT = "acc[g] = dot_chunk<T>(q[i], raw[g][i], acc[g]);"
+HALVING = "for (int half = G / 2, o = plan.lanes >> 1; half >= 1; half >>= 1, o >>= 1) {"
+ADDING = "for (int o = plan.lanes / (2 * G); o > 0; o >>= 1)"
+KEY = "order_key(id[0] >= 0 ? distance<METRIC>(acc[0], qsq, csq[0]) : kBig)"
 LAST_ENTRY = 'extern "C" int greedy_descent_f32('
 
 
@@ -272,25 +281,16 @@ def _entry(code: str) -> str:
     return code + "\n" + LAST_ENTRY
 
 
-BLOCKS = "    return kStaged && nc != 6 ? 8 : 4;"
-DOT = "                        for (int g = 0; g < G; ++g) acc[g] = dot_chunk<T>(q[i], raw[g][i], acc[g]);"
-HALVING = "                for (int half = G / 2, o = plan.lanes >> 1; half >= 1; half >>= 1, o >>= 1) {"
-ADDING = "                for (int o = plan.lanes / (2 * G); o > 0; o >>= 1)"
-KEY = "order_key(id[0] >= 0 ? distance<METRIC>(acc[0], qsq, csq[0]) : kBig)"
-
 VARIANTS = {
     "as_is": [],
-    # design point 2: (a) bulk copies into shared memory, (b) registers
-    "bulk": [(ROWS, ROWS + "0; // ")],
-    "registers": [(ROWS, ROWS + "1; // ")],
     # design point 1 off: the next step's ids fetched after the argmin
     "no_ahead": [(AHEAD, "    for (p.ahead = 0; p.ahead >= 0; --p.ahead) {")],
     "warps_2": [(WARPS, "constexpr int kWarps = 2;")],
-    # rows in registers: warp-steps a batch, and registers (blocks an SM)
-    "steps_2": [(STEPS, STEPS.replace(": 4);", ": 2);"))],
-    "blocks_6": [(BLOCKS, BLOCKS.replace(": 4;", ": (nc == 6 ? 4 : 6);"))],
-    "blocks_8": [(BLOCKS, BLOCKS.replace(": 4;", ": (nc == 6 ? 4 : 8);")),
-                 (STEPS, STEPS.replace(": 4);", ": 2);"))],
+    # warp-steps a batch, and registers (blocks an SM)
+    "steps_2": [(STEPS, STEPS.replace(": 4;", ": 2;"))],
+    "blocks_6": [(BOUNDS, "__launch_bounds__(kThreads, NC == 6 ? 4 : 6)")],
+    "blocks_8": [(BOUNDS, "__launch_bounds__(kThreads, NC == 6 ? 4 : 8)"),
+                 (STEPS, STEPS.replace(": 4;", ": 2;"))],
     # timing only: the recorded path's loads (rows, norms, ids), each row
     # folded with one xor, no products, reductions, distances or argmin
     "loads_only": [
@@ -298,8 +298,7 @@ VARIANTS = {
         (P_DECL, "    int p = 0, step = 0;\n"),
         (TOP, TOP + "        const int rec = g_path[(long long)b * g_stride + step++];\n"
          "        const int rec_id = rec >= 0 ? ids[rec] : -1;\n"),
-        (DOT, DOT.replace("dot_chunk<T>(q[i], raw[g][i], acc[g])",
-                          "__uint_as_float(__float_as_uint(acc[g]) ^ raw[g][i].x ^ raw[g][i].w)")),
+        (DOT, "acc[g] = __uint_as_float(__float_as_uint(acc[g]) ^ raw[g][i].x ^ raw[g][i].w);"),
         (HALVING, HALVING.replace("half >= 1;", "false;")),
         (ADDING, ADDING.replace("o > 0;", "false;")),
         (KEY, "__float_as_uint(acc[0]) ^ __float_as_uint(csq[0])"),
@@ -318,17 +317,16 @@ VARIANTS = {
         (KBIG, KBIG + "__device__ long long* g_clocks;\n"
          "#define TICK(k) { const long long t_ = clock64(); "
          "if (threadIdx.x == 0) ck[k] += t_ - tk; tk = t_; }\n"),
-        (P_DECL, P_DECL + "    __shared__ long long ck[7];\n"
-         "    if (threadIdx.x < 7) ck[threadIdx.x] = 0;\n"
+        (P_DECL, P_DECL + "    __shared__ long long ck[5];\n"
+         "    if (threadIdx.x < 5) ck[threadIdx.x] = 0;\n"
          "    int nsteps = 0;\n    long long tk = clock64();\n"),
-        (TOP, "        TICK(5);\n        ++nsteps;\n" + TOP),
-        (WAIT, "            TICK(0);\n" + WAIT),
-        (SCORE, "            if (r0 == 0) TICK(1);\n" + SCORE),
-        (BARRIER, "        TICK(2);\n" + BARRIER.replace(
-            "__syncthreads();\n", "__syncthreads();\n        TICK(3);\n")),
-        (MOVE, "        TICK(4);\n" + MOVE),
+        (TOP, "        TICK(4);\n        ++nsteps;\n" + TOP),
+        (ROWS, "        TICK(0);\n" + ROWS),
+        (BARRIER, "        TICK(1);\n" + BARRIER.replace(
+            "__syncthreads();\n", "__syncthreads();\n        TICK(2);\n")),
+        (MOVE, "        TICK(3);\n" + MOVE),
         (OUT, "    if (threadIdx.x == 0) {\n"
-         "        for (int k = 0; k < 6; ++k) g_clocks[b * 8 + k] = ck[k];\n"
+         "        for (int k = 0; k < 5; ++k) g_clocks[b * 8 + k] = ck[k];\n"
          "        g_clocks[b * 8 + 7] = nsteps;\n    }\n" + OUT),
         (LAST_ENTRY, _entry(
             'extern "C" int descent_set_clocks(void* clocks) {\n'
@@ -336,32 +334,32 @@ VARIANTS = {
             "    return (int)cudaGetLastError();\n}\n")),
     ],
 }
-# variants joined by "+" apply together
-COMBINED = ["loads_only+bulk", "clocks+bulk"]
-PHASES = ("issue", "rows_wait", "score", "barrier", "argmin", "decide")
+PHASES = ("issue", "score", "barrier", "argmin", "decide")
 TIMING_ONLY = ("loads_only", "clocks")
 # the instantiation of the main path: bf16, cosine, three chunks a lane
 MAIN_PIECE = "I13__nv_bfloat16Li0ELi3E"
 
 
-def variant_source(edits) -> str:
-    from hnsw_tpu_torch.ops import _cuda
-    text = (_cuda.CSRC / "descent.cu").read_text()
+def edited(text: str, edits, where: str) -> str:
     for old, new in edits:
         if text.count(old) != 1:
-            raise RuntimeError(f"the piece to replace is not in descent.cu "
+            raise RuntimeError(f"the piece to replace is not in {where} "
                                f"once: {old!r}")
         text = text.replace(old, new)
     return text
 
 
-def build_kernels(names, parent):
+def build_kernels(names, parent, bulk):
     """{name: (C entry points by dtype, ptxas of the main instantiation)}
-    for the parent's source and the variants, built in parallel."""
+    for the parent's source, the bulk-copy kernel and the variants, built
+    in parallel."""
     from hnsw_tpu_torch.ops import _cuda
     sources = {"parent": open(parent).read()} if parent else {}
-    sources.update({n: variant_source(
-        [e for part in n.split("+") for e in VARIANTS[part]]) for n in names})
+    if bulk:
+        sources["bulk"] = edited(open(bulk).read(), [BULK_EDIT], bulk)
+    text = (_cuda.CSRC / "descent.cu").read_text()
+    sources.update({n: edited(text, VARIANTS[n], "descent.cu")
+                    for n in names})
     procs = {n: nvcc(f"descent_{n}", text) for n, text in sources.items()}
     libs = {}
     for n, (proc, lib) in procs.items():
@@ -373,11 +371,11 @@ def build_kernels(names, parent):
             fn.argtypes = list(_cuda.SIGNATURES["descent.cu"][entry])
             fn.restype = ctypes.c_int
             fns[dtype] = fn
-        if "loads_only" in n.split("+"):
+        if n == "loads_only":
             fns["set_path"] = cdll.descent_set_path
             fns["set_path"].argtypes = [ctypes.c_void_p, ctypes.c_int]
             fns["set_path"].restype = ctypes.c_int
-        if "clocks" in n.split("+"):
+        if n == "clocks":
             fns["set_clocks"] = cdll.descent_set_clocks
             fns["set_clocks"].argtypes = [ctypes.c_void_p]
             fns["set_clocks"].restype = ctypes.c_int
@@ -469,20 +467,21 @@ def reading(torch, name, fns, label, metric, o, want, timing_only=False):
     return row
 
 
-def stage_kernels(torch, x, parent):
+def stage_kernels(torch, x, parent, bulk):
     from hnsw_tpu_torch.ops import descent
-    from hnsw_tpu_torch.ops.descent import plan
 
-    names = list(VARIANTS) + COMBINED
-    libs = build_kernels(names, parent if os.path.exists(parent) else None)
+    libs = build_kernels(list(VARIANTS),
+                         parent if os.path.exists(parent) else None,
+                         bulk if os.path.exists(bulk) else None)
+    names = [n for n in libs if n != "parent"]
     x["f32"] = x.pop("f32_vectors")
     cfgs = configs(torch, x)
     wants = {label: descent.greedy_descent_plain(
         o["q"], o["q_sq"], o["cur"], o["d0"], o["upper"], o["vectors"],
         o["v_sq"], metric) for label, metric, o in cfgs}
     m, d = x["upper"].shape[2], x["q"].shape[1]
-    say(stage="kernels", plan=plan(m, d, 2)._asdict(),
-        plan_f32=plan(m, d, 4)._asdict(),
+    say(stage="kernels", shared_bytes=descent.shared_bytes(m, d, 2),
+        shared_bytes_f32=descent.shared_bytes(m, d, 4),
         ptxas={n: res for n, (_, res) in libs.items()})
     # parent, change, change, parent at each reading
     for label, metric, o in cfgs:
@@ -493,15 +492,13 @@ def stage_kernels(torch, x, parent):
                           wants[label]))
     # the variants at the bf16 readings, the kernel as it stands around them
     _, _, path = walk_steps(torch, x, 1024)
-    for name in names:
-        if "loads_only" in name.split("+"):
-            libs[name][0]["set_path"](path.data_ptr(), path.shape[1])
+    libs["loads_only"][0]["set_path"](path.data_ptr(), path.shape[1])
     torch.cuda.synchronize()
     for label, metric, o in cfgs[:2]:
         for name in names + ["as_is"]:
             b = o["q"].shape[0]
-            timing_only = bool(set(name.split("+")) & set(TIMING_ONLY))
-            clocked = "clocks" in name.split("+")
+            timing_only = name in TIMING_ONLY
+            clocked = name == "clocks"
             if clocked:
                 clocks = torch.zeros(b * 8, dtype=torch.int64,
                                      device=o["q"].device)
@@ -554,11 +551,12 @@ def stage_insert(torch):
 
 def main() -> int:
     args = sys.argv[1:]
-    parent = PARENT
-    if "--parent" in args:
-        i = args.index("--parent")
-        parent = args[i + 1]
-        del args[i:i + 2]
+    paths = {"--parent": PARENT, "--bulk": BULK}
+    for flag in paths:
+        if flag in args:
+            i = args.index(flag)
+            paths[flag] = args[i + 1]
+            del args[i:i + 2]
     if "--tree" in args:
         # the package of another checkout (the insert stage)
         i = args.index("--tree")
@@ -582,7 +580,7 @@ def main() -> int:
         if stage == "walk":
             stage_walk(torch, x)
         elif stage == "kernels":
-            stage_kernels(torch, x, parent)
+            stage_kernels(torch, x, paths["--parent"], paths["--bulk"])
         elif stage == "insert":
             stage_insert(torch)
         else:

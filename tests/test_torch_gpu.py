@@ -576,9 +576,10 @@ def test_descent_kernel_matches_plain_version(d, m, dup, dtype, metric,
     queries (f32 sums in another order can flip only near-ties; exact ties
     of duplicate rows go to the first neighbour in both), and the distances
     where they agree to 1e-5 of the largest; one launch a call. M = 10
-    moves its ids 4 bytes at a time; D = 2,064 stages a neighbourhood in
-    batches of rows; M = 200 fetches the next step's ids after the argmin
-    (ops/descent.py:plan); D = 16 leaves lanes of a row idle."""
+    moves its ids 4 bytes at a time; D = 2,064 holds no chunk of the query
+    in registers (a chunk a pass); M = 200 fetches the next step's ids
+    after the argmin (csrc/descent.cu:make_plan); D = 16 leaves lanes of a
+    row idle."""
     args = _descent_inputs(d, m, dtype, metric, cuda_device, dup)
     before = descent.greedy_descent.launches
     kc, kd = descent.greedy_descent(*args, metric)
@@ -602,6 +603,13 @@ def test_descent_kernel_refuses_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):          # rows of 12 bytes
         descent.greedy_descent(q[:, :6].contiguous(), q_sq, cur, d0, adj,
                                vectors[:, :6].contiguous(), v_sq, "cosine")
+    # M = 10,000: two buffers of its keys and ids alone pass the shared
+    # memory of a block
+    wide = torch.zeros((1, vectors.shape[0], 10_000), dtype=torch.int32,
+                       device=adj.device)
+    with pytest.raises(ValueError):
+        descent.greedy_descent(q, q_sq, cur, d0, wide, vectors, v_sq,
+                               "cosine")
 
 
 def _launches():
