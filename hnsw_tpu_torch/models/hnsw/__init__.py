@@ -24,6 +24,7 @@ from hnsw_tpu_torch.models.hnsw.search import (_search_batch,
                                                pack_neighbors_int8,
                                                sample_entries)
 from hnsw_tpu_torch.types import Corpus, Metric
+from hnsw_tpu_torch.utils import tracing
 from hnsw_tpu_torch.utils.graphs import CapturedCall
 
 
@@ -83,27 +84,38 @@ class HNSWIndex(ANNIndex):
                      ef: Optional[int] = None, debug_hops: bool = False):
         """On the card the search is replayed from a CUDA graph captured at
         the first call of each (batch shape, k, ef, mode-derived settings,
-        pack kind); the CPU runs it directly."""
-        q = self.corpus.pad_queries(queries)
-        dev = q.device
-        if self.graph.n == 0 or self.graph.entry < 0:
-            b = q.shape[0]
-            out = (torch.full((b, k), float("inf"), device=dev),
-                   torch.full((b, k), -1, dtype=torch.int32, device=dev))
-            return out + (0,) if debug_hops else out
-        run, key = self._search_fn(k, mode, ef, debug_hops)
-        if dev.type != "cuda":
-            d, r, hops = run(q)
-        else:
-            key = (tuple(q.shape),) + key
-            call = self._graphs.pop(key, None)
-            if call is None:
-                while len(self._graphs) >= self.GRAPH_CACHE:
-                    self._graphs.popitem(last=False)
-                call = CapturedCall(run, q)
-            self._graphs[key] = call            # the most recently used last
-            d, r, hops = call(q)
-        return (d, r, int(hops)) if debug_hops else (d, r)
+        pack kind, device tracing); the CPU runs it directly. Records the
+        spans hnsw.search (the call; attributes batch and captured) and
+        inside it hnsw.search.pad (the queries to the device), .prepare
+        (the settings, and any shadow or pack they need), .capture (a
+        key's first call on the card) and CapturedCall's .replay and
+        .clone."""
+        captured = self.corpus.device.type == "cuda"
+        with tracing.span("hnsw.search", captured=captured) as root:
+            with tracing.span("hnsw.search.pad"):
+                q = self.corpus.pad_queries(queries)
+            root.attrs["batch"] = q.shape[0]
+            dev = q.device
+            if self.graph.n == 0 or self.graph.entry < 0:
+                b = q.shape[0]
+                out = (torch.full((b, k), float("inf"), device=dev),
+                       torch.full((b, k), -1, dtype=torch.int32, device=dev))
+                return out + (0,) if debug_hops else out
+            with tracing.span("hnsw.search.prepare"):
+                run, key = self._search_fn(k, mode, ef, debug_hops)
+            if dev.type != "cuda":
+                d, r, hops = run(q)
+            else:
+                key = (tuple(q.shape),) + key
+                call = self._graphs.pop(key, None)
+                if call is None:
+                    while len(self._graphs) >= self.GRAPH_CACHE:
+                        self._graphs.popitem(last=False)
+                    with tracing.span("hnsw.search.capture"):
+                        call = CapturedCall(run, q)
+                self._graphs[key] = call        # the most recently used last
+                d, r, hops = call(q)
+            return (d, r, int(hops)) if debug_hops else (d, r)
 
     def _drop_graphs(self):
         """Forget every captured search: each replays on the tensors it was
@@ -115,7 +127,9 @@ class HNSWIndex(ANNIndex):
         """The search of a batch as a function of the padded queries alone,
         with every host decision taken and every cached shadow, pack and
         entry sample built here, ahead of any capture. Returns (run, key):
-        run(q) -> (dists, rows, hops) and the settings that fix it."""
+        run(q) -> (dists, rows, hops) and the settings that fix it, which
+        end in "device_tracing" while the tracer's device marks are on
+        (a graph captured with them holds their kernels)."""
         ef = ef if ef is not None else ef_for(mode, k)
         # "auto": bf16-class loop scoring for cosine; the euclidean norm
         # formula cancels at bf16, so it keeps f32
@@ -165,13 +179,15 @@ class HNSWIndex(ANNIndex):
         if use_pack and (self._nbr_pack is None
                          or self._nbr_pack.dtype != want_dtype):
             src_sq = self._vsq_lp if lowdim else v_sq
-            if pp == "int8":
-                self._nbr_pack, self._nbr_scale, self._nbr_sq = \
-                    pack_neighbors_int8(self._vec_lp, src_sq, self.graph.adj0)
-            else:
-                self._nbr_pack, self._nbr_sq = pack_neighbors(
-                    self._vec_lp, src_sq, self.graph.adj0)
-                self._nbr_scale = None
+            with tracing.span("hnsw.pack", precision=pp):
+                if pp == "int8":
+                    self._nbr_pack, self._nbr_scale, self._nbr_sq = \
+                        pack_neighbors_int8(self._vec_lp, src_sq,
+                                            self.graph.adj0)
+                else:
+                    self._nbr_pack, self._nbr_sq = pack_neighbors(
+                        self._vec_lp, src_sq, self.graph.adj0)
+                    self._nbr_scale = None
             self._drop_graphs()
         hierarchy = self.entry_mode != "sample"
         sample_rows = None if hierarchy else self._entry_rows()
@@ -189,6 +205,7 @@ class HNSWIndex(ANNIndex):
         graph = self.graph
 
         def run(q):
+            tracing.mark("entry", q.device)
             if hierarchy:
                 entries = torch.full((q.shape[0],), graph.entry,
                                      dtype=torch.int32, device=q.device)
@@ -206,6 +223,8 @@ class HNSWIndex(ANNIndex):
 
         key = (k, ef, precision, hierarchy, self.expand, self.rerank_mult,
                pp if use_pack else None, loop_dim, debug_hops)
+        if tracing.device_tracing():
+            key += ("device_tracing",)
         return run, key
 
     def add_batch(self, data, ids=None, *, seed_offset: int = 0):

@@ -33,6 +33,7 @@ from hnsw_tpu_torch.ops.distance import (BIG, as_bf16_f32, distances_from_dots,
                                          gather_score)
 from hnsw_tpu_torch.ops.topk import top_k_ascending
 from hnsw_tpu_torch.types import Corpus, Metric
+from hnsw_tpu_torch.utils import tracing
 
 # Query-tile row count for build passes: bounds the [QT, N] score block.
 BUILD_TILE = 1024
@@ -468,7 +469,10 @@ def build_graph(
 ) -> HNSWGraph:
     """Build the full hierarchy on the corpus's device. k_cand is the
     exact-kNN candidate pool fed to the heuristic. Layers of more than
-    build_large.LARGE_N rows take the bucketed builder."""
+    build_large.LARGE_N rows take the bucketed builder. Records the span
+    hnsw.build (attribute rows) and inside it hnsw.build.layers (layer 0's
+    dispatch and the upper layers built on the host), .fetch (waiting for
+    the device layers) and .repair (bridge_components)."""
     from hnsw_tpu_torch.models.hnsw.build_large import (
         LARGE_N, build_layer_clustered,
     )
@@ -478,130 +482,136 @@ def build_graph(
             raise BuildInterrupted(f"build interrupted at {stage}")
         if progress is not None:
             progress(stage, frac)
-    n = corpus.n
-    n_pad = corpus.n_pad
-    dev = corpus.device
-    m0 = m0 or 2 * m
-    ml = ml if ml is not None else 1.0 / math.log(2.0)
-    metric = metric or corpus.metric
-    k_cand = k_cand or min(max(2 * m0, 48), 192)
-    if build_precision == "auto":
-        # bf16 products for cosine at every size; euclidean's norm formula
-        # cancels at bf16, so it keeps f32 until the N^2 cost forces the
-        # trade above ~50k rows
-        if metric == Metric.COSINE or n > 50000:
-            build_precision = "bf16"
-        else:
-            build_precision = "highest"
+    with tracing.span("hnsw.build", rows=corpus.n):
+        n = corpus.n
+        n_pad = corpus.n_pad
+        dev = corpus.device
+        m0 = m0 or 2 * m
+        ml = ml if ml is not None else 1.0 / math.log(2.0)
+        metric = metric or corpus.metric
+        k_cand = k_cand or min(max(2 * m0, 48), 192)
+        if build_precision == "auto":
+            # bf16 products for cosine at every size; euclidean's norm formula
+            # cancels at bf16, so it keeps f32 until the N^2 cost forces the
+            # trade above ~50k rows
+            if metric == Metric.COSINE or n > 50000:
+                build_precision = "bf16"
+            else:
+                build_precision = "highest"
 
-    levels_np = assign_levels(n, ml, seed,
-                              max_cap=max(int(math.log2(max(n, 2))), 1))
-    if not hierarchy:
-        levels_np = np.zeros_like(levels_np)
-    max_level = int(levels_np.max()) if n else 0
+        levels_np = assign_levels(n, ml, seed,
+                                  max_cap=max(int(math.log2(max(n, 2))), 1))
+        if not hierarchy:
+            levels_np = np.zeros_like(levels_np)
+        max_level = int(levels_np.max()) if n else 0
 
-    levels = np.full((n_pad,), NONE, np.int32)
-    levels[:n] = levels_np
+        levels = np.full((n_pad,), NONE, np.int32)
+        levels[:n] = levels_np
 
-    adj0 = np.full((n_pad, m0), NONE, np.int32)
-    adj_upper = np.full((max_level, n_pad, m), NONE, np.int32)
+        adj0 = np.full((n_pad, m0), NONE, np.int32)
+        adj_upper = np.full((max_level, n_pad, m), NONE, np.int32)
 
-    def clustered(members, cap, kc):
-        return build_layer_clustered(
-            corpus.vectors, corpus.sq_norms, members, cap=cap, k_cand=kc,
-            metric=metric, seed=seed, n_probe_clusters=large_probe_clusters,
-            refine_rounds=large_refine_rounds, precision=build_precision,
-            progress=progress)
+        def clustered(members, cap, kc):
+            return build_layer_clustered(
+                corpus.vectors, corpus.sq_norms, members, cap=cap, k_cand=kc,
+                metric=metric, seed=seed,
+                n_probe_clusters=large_probe_clusters,
+                refine_rounds=large_refine_rounds, precision=build_precision,
+                progress=progress)
 
-    # layers past LARGE_N build synchronously with the bucketed builder;
-    # the others are dispatched here and fetched after the host layers
-    pending = []     # (level, device adjacency, member_rows)
-    _tick("layer0", 0.0)
-    if n > 1:
-        members0 = np.arange(n, dtype=np.int32)
-        if n > LARGE_N:
-            adj0[:n] = clustered(members0, m0, k_cand)
-        else:
-            pending.append((0, *build_layer_dispatch(
-                corpus.vectors, members0, cap=m0, k_cand=k_cand,
-                metric=metric, precision=build_precision)))
-    _tick("layer0", 1.0)
+        # layers past LARGE_N build synchronously with the bucketed builder;
+        # the others are dispatched here and fetched after the host layers
+        with tracing.span("hnsw.build.layers"):
+            pending = []     # (level, device adjacency, member_rows)
+            _tick("layer0", 0.0)
+            if n > 1:
+                members0 = np.arange(n, dtype=np.int32)
+                if n > LARGE_N:
+                    adj0[:n] = clustered(members0, m0, k_cand)
+                else:
+                    pending.append((0, *build_layer_dispatch(
+                        corpus.vectors, members0, cap=m0, k_cand=k_cand,
+                        metric=metric, precision=build_precision)))
+            _tick("layer0", 1.0)
 
-    host_layers = []
-    for l in range(1, max_level + 1):
-        _tick(f"layer{l}", l / max(max_level, 1))
-        members = np.nonzero(levels_np >= l)[0].astype(np.int32)
-        if len(members) <= 1:
-            continue
-        if len(members) > LARGE_N:
-            adj_upper[l - 1, members] = clustered(members, m,
-                                                  min(k_cand, 4 * m))
-        elif len(members) > HOST_LAYER_MAX:
-            pending.append((l, *build_layer_dispatch(
-                corpus.vectors, members, cap=m,
-                k_cand=min(k_cand, 4 * m), metric=metric,
-                precision=build_precision)))
-        else:
-            host_layers.append((l, members))
+            host_layers = []
+            for l in range(1, max_level + 1):
+                _tick(f"layer{l}", l / max(max_level, 1))
+                members = np.nonzero(levels_np >= l)[0].astype(np.int32)
+                if len(members) <= 1:
+                    continue
+                if len(members) > LARGE_N:
+                    adj_upper[l - 1, members] = clustered(members, m,
+                                                          min(k_cand, 4 * m))
+                elif len(members) > HOST_LAYER_MAX:
+                    pending.append((l, *build_layer_dispatch(
+                        corpus.vectors, members, cap=m,
+                        k_cand=min(k_cand, 4 * m), metric=metric,
+                        precision=build_precision)))
+                else:
+                    host_layers.append((l, members))
 
-    host_x = None
-    host_pos = None
-    for l, members in host_layers:
-        if host_x is None:
-            host_x = corpus.vectors[torch.from_numpy(
-                members.astype(np.int64)).to(dev)].cpu().numpy()
-            host_pos = {int(r): i for i, r in enumerate(members)}
-            x = host_x
-        else:
-            x = host_x[[host_pos[int(r)] for r in members]]
-        out_local = _build_layer_host(x, cap=m, k_cand=min(k_cand, 4 * m),
-                                      metric=metric)
-        adj_upper[l - 1, members] = np.where(
-            out_local >= 0, members[np.maximum(out_local, 0)],
-            NONE).astype(np.int32)
+            host_x = None
+            host_pos = None
+            for l, members in host_layers:
+                if host_x is None:
+                    host_x = corpus.vectors[torch.from_numpy(
+                        members.astype(np.int64)).to(dev)].cpu().numpy()
+                    host_pos = {int(r): i for i, r in enumerate(members)}
+                    x = host_x
+                else:
+                    x = host_x[[host_pos[int(r)] for r in members]]
+                out_local = _build_layer_host(
+                    x, cap=m, k_cand=min(k_cand, 4 * m), metric=metric)
+                adj_upper[l - 1, members] = np.where(
+                    out_local >= 0, members[np.maximum(out_local, 0)],
+                    NONE).astype(np.int32)
 
-    _tick("fetch", 0.0)
-    for l, dev_adj, rows in pending:
-        out = finish_layer(dev_adj, rows)
-        if l == 0:
-            adj0[:n] = out
-        else:
-            adj_upper[l - 1, rows] = out
-    _tick("fetch", 1.0)
+        with tracing.span("hnsw.build.fetch"):
+            _tick("fetch", 0.0)
+            for l, dev_adj, rows in pending:
+                out = finish_layer(dev_adj, rows)
+                if l == 0:
+                    adj0[:n] = out
+                else:
+                    adj_upper[l - 1, rows] = out
+            _tick("fetch", 1.0)
 
-    entry = int(np.nonzero(levels_np == max_level)[0][0]) if n else NONE
+        entry = int(np.nonzero(levels_np == max_level)[0][0]) if n else NONE
 
-    # connectivity repair: exact-kNN construction leaves clustered corpora
-    # as one graph per cluster with no inter-cluster edges (see repair.py)
-    n_bridges = 0
-    if n > 1:
-        _tick("repair", 0.0)
-        from hnsw_tpu_torch.models.hnsw.repair import bridge_components
-        adj0[:n], nb = bridge_components(
-            corpus.vectors, corpus.sq_norms, adj0[:n],
-            np.arange(n, dtype=np.int32), metric=metric, seed=seed)
-        n_bridges += nb
-        for l in range(1, max_level + 1):
-            members = np.nonzero(levels_np >= l)[0].astype(np.int32)
-            if len(members) <= 1:
-                continue
-            adj_upper[l - 1, members], nb = bridge_components(
-                corpus.vectors, corpus.sq_norms, adj_upper[l - 1, members],
-                members, metric=metric, seed=seed)
-            n_bridges += nb
-        _tick("repair", 1.0)
+        # connectivity repair: exact-kNN construction leaves clustered corpora
+        # as one graph per cluster with no inter-cluster edges (see repair.py)
+        n_bridges = 0
+        with tracing.span("hnsw.build.repair"):
+            if n > 1:
+                _tick("repair", 0.0)
+                from hnsw_tpu_torch.models.hnsw.repair import bridge_components
+                adj0[:n], nb = bridge_components(
+                    corpus.vectors, corpus.sq_norms, adj0[:n],
+                    np.arange(n, dtype=np.int32), metric=metric, seed=seed)
+                n_bridges += nb
+                for l in range(1, max_level + 1):
+                    members = np.nonzero(levels_np >= l)[0].astype(np.int32)
+                    if len(members) <= 1:
+                        continue
+                    adj_upper[l - 1, members], nb = bridge_components(
+                        corpus.vectors, corpus.sq_norms,
+                        adj_upper[l - 1, members], members, metric=metric,
+                        seed=seed)
+                    n_bridges += nb
+                _tick("repair", 1.0)
 
-    return HNSWGraph(
-        levels=torch.from_numpy(levels).to(dev),
-        adj0=torch.from_numpy(adj0).to(dev),
-        adj_upper=torch.from_numpy(adj_upper).to(dev),
-        entry=entry,
-        max_level=max_level,
-        m=m, m0=m0,
-        ef_construction=ef_construction,
-        n=n,
-        n_bridges=n_bridges,
-    )
+        return HNSWGraph(
+            levels=torch.from_numpy(levels).to(dev),
+            adj0=torch.from_numpy(adj0).to(dev),
+            adj_upper=torch.from_numpy(adj_upper).to(dev),
+            entry=entry,
+            max_level=max_level,
+            m=m, m0=m0,
+            ef_construction=ef_construction,
+            n=n,
+            n_bridges=n_bridges,
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,13 @@ With a neighbour pack, each hop's scoring is ``ops/hop.py``: on the card the
 hand-written kernels ``hop_score`` (bf16 pack) and ``hop_score_int8`` (int8
 codes). Scores inside the loop use the bf16 shadow; the final top-k is
 re-scored in f32, so reported distances are exact.
+
+With device tracing on (``utils/tracing.py``) the search marks its phases,
+``entry`` (the descent or the sampled entry, and the seed), per body
+``select``, ``expand`` (adjacency gather, dedupe, in-beam test), ``score``
+and ``merge``, then ``rerank``; the card's loop also counts its useful work
+in ``count`` phases of its own (``_count_hops``). Off, it launches what it
+did without them.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from hnsw_tpu_torch.ops.distance import shadow_score as _score
 from hnsw_tpu_torch.ops.sort import bitonic_topk_presorted
 from hnsw_tpu_torch.ops.topk import top_k_ascending
 from hnsw_tpu_torch.types import Metric
+from hnsw_tpu_torch.utils import tracing
 
 
 def _beam_merge(beam_d, beam_i, beam_e, cand_d, cand_i, ef: int,
@@ -92,14 +100,28 @@ def _hops_fixed(body, state, max_hops: int, count: bool):
     beam's (d, id, expanded) slots as they were. So rows and distances are
     those of the early-exit loop. `active` only ever falls, so adding
     any(active) before each body counts the bodies the early-exit loop runs,
-    the reference's trip count (a device scalar; None unless `count`)."""
+    the reference's trip count (a device scalar; None unless `count` or
+    device tracing is on, whose counter hop.bodies_needed it feeds)."""
     hops = (torch.zeros((), dtype=torch.int32, device=state[0].device)
-            if count else None)
+            if count or tracing.device_tracing() else None)
     for _ in range(max_hops):
-        if count:
+        if hops is not None:
             hops += state[3].any()
         state = body(*state)
     return state, hops
+
+
+def _count_hops(hops, max_hops: int, slots: int, active, valid, dev):
+    """The card's loop's useful work, into the tracer's counters: the bodies
+    run, those needed (the trip count `hops`), each body's queries still
+    active after its stop rule (`active`, a device scalar a body), the
+    slots scored (`slots` a body: B x E x M0) and those left valid after
+    the dedupe and the in-beam test (`valid`, a device scalar a body)."""
+    tracing.count("hop.bodies_run", max_hops, dev)
+    tracing.count("hop.bodies_needed", hops)
+    tracing.count("hop.query_bodies_active", torch.stack(active).sum())
+    tracing.count("hop.slots_scored", max_hops * slots, dev)
+    tracing.count("hop.slots_valid", torch.stack(valid).sum())
 
 
 def _dedupe_row(ids, valid):
@@ -158,6 +180,7 @@ def _search_batch(
 
     metric = Metric.coerce(metric)
     dev = vectors.device
+    tracing.mark("entry", dev)
     b = queries.shape[0]
     ef = max(ef, k)
     e = min(expand, ef)
@@ -210,7 +233,13 @@ def _search_batch(
     e_iota = torch.arange(e, dtype=torch.int32, device=dev)
     q_kernel = q_loop.float().contiguous()
 
+    fixed = _runs_fixed_length(dev)
+    # with device tracing on, the card's loop counts each body's active
+    # queries and valid slots, in `count` phases of its own
+    tally = ([], []) if fixed and tracing.device_tracing() else None
+
     def body(beam_d, beam_ids, beam_exp, active):
+        tracing.mark("select", dev)
         elig = (~beam_exp) & (beam_ids >= 0)
         # the beam is sorted ascending, so the FIRST e eligible slots are the
         # e best unexpanded candidates: rank-compact them with a cumsum
@@ -225,6 +254,7 @@ def _search_batch(
         sel_ids = torch.amax(torch.where(onehot, beam_ids[:, None, :], -1),
                              dim=-1)                        # [B, E]
 
+        tracing.mark("expand", dev)
         sel_rows = torch.clamp(sel_ids, min=0)
         nb = adj0[sel_rows]                                 # [B, E, M0]
         nb = torch.where((sel_ids >= 0)[:, :, None], nb, -1).reshape(b, c)
@@ -234,6 +264,7 @@ def _search_batch(
         in_beam = torch.any(nb[:, :, None] == beam_ids[:, None, :], dim=-1)
         valid = valid & ~in_beam
 
+        tracing.mark("score", dev)
         if nbr_pack is not None:
             # bf16 packs get csq from the gathered block itself; int8 packs
             # return raw code dots, dequantized with the per-row scale
@@ -248,20 +279,30 @@ def _search_batch(
         else:
             d_nb = _score(q_loop, torch.clamp(nb, min=0), loop_vecs,
                           v_sq_loop, metric, valid)
+        tracing.mark("merge", dev)
         beam_d, beam_ids, beam_exp = _beam_merge(
             beam_d, beam_ids, beam_exp, d_nb, torch.where(valid, nb, -1), ef,
             force=merge)
+        if tally is not None:
+            tracing.mark("count", dev)
+            tally[0].append(active.sum())
+            tally[1].append(valid.sum())
         return beam_d, beam_ids, beam_exp, active
 
     state = (beam_d, beam_ids, beam_exp,
              torch.ones((b,), dtype=torch.bool, device=dev))
-    if _runs_fixed_length(dev):
+    if fixed:
+        if tally is not None:
+            tracing.mark("count", dev)
         state, hops = _hops_fixed(body, state, max_hops, debug_hops)
+        if tally is not None:
+            _count_hops(hops, max_hops, b * c, *tally, dev)
     else:
         hops = 0
         while hops < max_hops and bool(state[3].any()):
             state = body(*state)
             hops += 1
+    tracing.mark("rerank", dev)
     beam_d, beam_ids = state[0], state[1]
 
     # exact final re-rank of a `rerank`-wide beam prefix (wider for a
@@ -277,6 +318,7 @@ def _search_batch(
         out_i = torch.where(out_d < BIG, out_i, -1)
     else:
         out_d, out_i = out_d[:, :k], out_i[:, :k]
+    tracing.mark(tracing.END, dev)
     return out_d, out_i, hops
 
 

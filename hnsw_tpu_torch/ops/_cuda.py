@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu", "descent.cu")
+SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu", "descent.cu",
+           "trace.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -85,6 +86,10 @@ SIGNATURES = {
         "colsum_bf16": (P, P, P, P, I, I, I, I, I, P),
         # v8, q8, out, B, N_used, D, nt, take_min, splits, stream
         "last_tile_int8": (P, P, P, I, I, I, I, I, I, P),
+    },
+    "trace.cu": {
+        # state, the phase the mark closes (< 0: none), stream
+        "trace_stamp": (P, I, P),
     },
 }
 

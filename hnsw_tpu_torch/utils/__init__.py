@@ -1,8 +1,11 @@
-"""Utilities: timing spans and profiler hooks. Counterpart of
-``hnsw_tpu/utils/`` (its compile-cache scrub, ``cache.py``, has no twin:
-the port's only build cache is the kernel libraries of ``_build/``, keyed
-by source digest and written atomically)."""
+"""Utilities: the port's one tracer (host spans, device marks and counters)
+and the profiler's Chrome trace. Counterpart of ``hnsw_tpu/utils/``: its
+``Timer`` and ``timed`` (``timing.py``) and ``annotate`` have no twin, as
+``tracing.span`` records and mirrors into the profiler what they did, and its
+compile-cache scrub, ``cache.py``, has none: the port's only build cache is
+the kernel libraries of ``_build/``, keyed by source digest and written
+atomically."""
 
-from hnsw_tpu_torch.utils.timing import Timer, timed
+from hnsw_tpu_torch.utils import tracing
 
-__all__ = ["Timer", "timed"]
+__all__ = ["tracing"]

@@ -11,11 +11,18 @@ Launch counts. The kernel wrappers count a launch in Python
 (``wrapper.launches``). A call made during capture launches nothing and a
 replay runs no Python, so the capture takes back what its calls counted,
 keeps it as the launches the graph holds, and each replay adds them.
+
+Spans. A call records ``hnsw.search.replay`` (the static copies, the replay's
+launch and the launch counts) and ``hnsw.search.clone`` (the outputs'
+clones) on the port's tracer (``utils/tracing.py``): the graph replays the
+HNSW search.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hnsw_tpu_torch.utils import tracing
 
 
 def kernel_wrappers():
@@ -25,7 +32,7 @@ def kernel_wrappers():
             scan.bucket_topk, scan.int8_bucket_topk, scan.exact_topk_sweep,
             scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
             probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
-            probes.matmul_min)
+            probes.matmul_min, tracing.stamp)
 
 
 def _clone(out):
@@ -69,12 +76,15 @@ class CapturedCall:
                 w.launches = n
 
     def __call__(self, *inputs):
-        for static, x in zip(self.static_in, inputs):
-            if x.shape != static.shape:
-                raise ValueError(f"captured for shape {tuple(static.shape)}, "
-                                 f"given {tuple(x.shape)}")
-            static.copy_(x)
-        self.graph.replay()
-        for w, n in self.launches:
-            w.launches += n
-        return _clone(self.static_out)
+        with tracing.span("hnsw.search.replay"):
+            for static, x in zip(self.static_in, inputs):
+                if x.shape != static.shape:
+                    raise ValueError("captured for shape "
+                                     f"{tuple(static.shape)}, given "
+                                     f"{tuple(x.shape)}")
+                static.copy_(x)
+            self.graph.replay()
+            for w, n in self.launches:
+                w.launches += n
+        with tracing.span("hnsw.search.clone"):
+            return _clone(self.static_out)

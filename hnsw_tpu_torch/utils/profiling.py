@@ -1,5 +1,7 @@
-"""Profiler hooks on ``torch.profiler``. Counterpart of
-``hnsw_tpu/utils/profiling.py`` (``jax.profiler``)."""
+"""The profiler's Chrome trace on ``torch.profiler``. Counterpart of
+``hnsw_tpu/utils/profiling.py`` (``jax.profiler``). Its ``annotate`` has no
+twin: the port's spans (``utils/tracing.py``) show in the trace as
+``record_function`` ranges of their names while a profiler records."""
 
 from __future__ import annotations
 
@@ -28,11 +30,3 @@ def profile_trace(log_dir: Optional[str] = None):
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named range in the trace."""
-    import torch
-
-    with torch.profiler.record_function(name):
-        yield

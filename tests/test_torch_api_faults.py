@@ -5,7 +5,9 @@
    name a package's __all__ exports exists in its twin. The kernel modules
    ops/pallas_hop.py and ops/pallas_scan.py have their twins under other
    names (ops/hop.py, ops/scan.py, held by the kernel tests), and
-   utils/cache.py (JAX's compile-cache scrub) has none.
+   utils/cache.py (JAX's compile-cache scrub) has none; nor have
+   utils/timing.py (Timer, timed) and utils/profiling.py's annotate, which
+   the port's one tracer, utils/tracing.py, replaces.
 2. mask_invalid, heuristic_select and build_layer give JAX's results (the
    device path of build_layer at the 0.98 row-set overlap of the stacked
    builds, tests/test_torch_families.py).
@@ -43,7 +45,9 @@ from tests.conftest import make_clustered, make_unit
 CPU = dict(device="cpu")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NO_SAME_PATH_TWIN = {"ops/pallas_hop.py", "ops/pallas_scan.py",
-                     "utils/cache.py"}
+                     "utils/cache.py", "utils/timing.py"}
+# public names with no twin: utils/tracing.py takes their place
+NO_TWIN = {"annotate", "Timer", "timed"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -81,7 +85,7 @@ def test_every_public_name_has_a_twin(rel):
     if rel in NO_SAME_PATH_TWIN:
         assert not twin.exists()
         return
-    gap = _defined(ROOT / "hnsw_tpu" / rel) - _defined(twin)
+    gap = _defined(ROOT / "hnsw_tpu" / rel) - _defined(twin) - NO_TWIN
     assert not gap, f"{rel}: no twin for {sorted(gap)}"
 
 
@@ -90,7 +94,8 @@ def test_every_public_name_has_a_twin(rel):
 def test_every_exported_name_exists(pkg):
     ref = importlib.import_module("hnsw_tpu" + pkg)
     port = importlib.import_module("hnsw_tpu_torch" + pkg)
-    missing = [n for n in ref.__all__ if not hasattr(port, n)]
+    missing = [n for n in ref.__all__
+               if not hasattr(port, n) and n not in NO_TWIN]
     assert not missing, f"hnsw_tpu_torch{pkg} lacks {missing}"
 
 

@@ -675,3 +675,79 @@ def test_hnsw_index_replays_its_captured_search(entry_mode, pp, cuda_device):
     d, r = idx.search_batch(q, 10, "balanced")
     ed, er, _ = idx._search_fn(10, "balanced", None, False)[0](q)
     assert torch.equal(r, er) and torch.equal(d, ed)
+
+
+def _small_card_index(cuda_device, **kw):
+    data = generate_vectors(3000, 128, distribution="embedding",
+                            num_clusters=16, seed=5)
+    built = build_hnsw_index(data[:2900], M=16, device=cuda_device)
+    idx = HNSWIndex(built.corpus, built.graph, **kw)
+    return idx, idx.corpus.pad_queries(data[2900:2964])
+
+
+def test_untraced_capture_launches_what_it_did(cuda_device):
+    """Device tracing off, the captured search holds the hand-written
+    kernels it held before the tracer (max_hops hop launches, no mark);
+    on, the same, and the marks: the entry, a count before the loop, five a
+    body (select, expand, score, merge, count), the re-rank and the end."""
+    from hnsw_tpu_torch.utils import tracing
+
+    idx, q = _small_card_index(cuda_device)
+    max_hops = 200 // 4 + 12
+    tracing.enable_device(False)
+    idx.search_batch(q, 10, "balanced")
+    (call,) = idx._graphs.values()
+    assert call.launches == [(hop.hop_score, max_hops)]
+    try:
+        tracing.enable_device(True)
+        idx.search_batch(q, 10, "balanced")
+    finally:
+        tracing.enable_device(False)
+        tracing.collect()
+    traced = list(idx._graphs.values())[-1]
+    assert len(idx._graphs) == 2
+    assert traced.launches == [(hop.hop_score, max_hops),
+                               (tracing.stamp, 4 + 5 * max_hops)]
+
+
+@pytest.mark.parametrize("entry_mode", ["sample", "hierarchy"])
+def test_traced_capture_phases_sum_to_its_replays(entry_mode, cuda_device):
+    """A graph captured with device tracing, replayed ten times back to
+    back: its phases, summed over the replays, within 3% of the replays'
+    time (two CUDA events around them on the stream; the host queues the
+    next replay before the card ends the last, and the first mark opens
+    each graph, the last closes it); the rows those of the untraced graph;
+    the counters' bodies needed debug_hops's trip count; each share within
+    its base."""
+    from hnsw_tpu_torch.utils import tracing
+
+    idx, q = _small_card_index(cuda_device, entry_mode=entry_mode)
+    d0, r0, hops = idx.search_batch(q, 10, "balanced", debug_hops=True)
+    reps = 10
+    try:
+        tracing.enable_device(True)
+        idx.search_batch(q, 10, "balanced")
+        tracing.collect()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            d1, r1 = idx.search_batch(q, 10, "balanced")
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        got = tracing.collect()
+    finally:
+        tracing.enable_device(False)
+    assert torch.equal(r0, r1) and torch.equal(d0, d1)
+    assert got.runs == reps
+    phases = sum(got.phase_ms.values())
+    assert abs(phases - ms) <= 0.03 * ms, (phases, ms, got.phase_ms)
+    assert all(got.phase_ms[p] > 0 for p in tracing.PHASES)
+    c = got.counters
+    max_hops = 200 // 4 + 12
+    assert c["hop.bodies_run"] == reps * max_hops
+    assert c["hop.bodies_needed"] == reps * hops
+    assert 0 < c["hop.query_bodies_active"] <= 64 * c["hop.bodies_run"]
+    assert c["hop.slots_scored"] == reps * max_hops * 64 * 4 * idx.graph.m0
+    assert 0 < c["hop.slots_valid"] <= c["hop.slots_scored"]

@@ -1,10 +1,11 @@
 """Port of the tools (hnsw_tpu_torch/io/loader.py, io/native.py,
 bench/cli.py, apps/shell.py, utils/) against the JAX package's, on the CPU.
 
-Twins of tests/test_apps.py, tests/test_native.py, the loader cases of
-tests/test_io.py and tests/test_bench_utils.py::test_timer_utils. Each case
-writes its own small JSON corpus; the port's loader, native parser and
-shell give arrays, ids, texts, metadata and result rows identical to the
+Twins of tests/test_apps.py, tests/test_native.py and the loader cases of
+tests/test_io.py; tests/test_bench_utils.py::test_timer_utils has none, as
+the port's spans (utils/tracing.py, tests/test_torch_tracing.py) replace
+Timer and timed, and profile_trace shows them here. Each case writes its
+own small JSON corpus; the port's loader, native parser and shell give arrays, ids, texts, metadata and result rows identical to the
 JAX package's on the same file. The native library is built only under
 hnsw_tpu_torch/_build/ (never into native/).
 """
@@ -23,8 +24,8 @@ from hnsw_tpu.io import native as jnative
 from hnsw_tpu_torch.apps.shell import SearchShell
 from hnsw_tpu_torch.bench import cli
 from hnsw_tpu_torch.io import loader, native
-from hnsw_tpu_torch.utils import Timer, timed
-from hnsw_tpu_torch.utils.profiling import annotate, profile_trace
+from hnsw_tpu_torch.utils import tracing
+from hnsw_tpu_torch.utils.profiling import profile_trace
 
 CPU = dict(device="cpu")
 
@@ -254,26 +255,11 @@ def test_fallback_chain(tmp_path):
     _same_load(found[:3], want[:3])
 
 
-def test_timer_utils():
-    t = Timer()
-    with t.span("a"):
-        pass
-    with t.span("a"):
-        pass
-    rep = t.report()
-    assert rep["a"]["count"] == 2
-    assert set(rep["a"]) == {"total_s", "count", "avg_ms"}
-    out = []
-    with timed("x", out):
-        pass
-    assert out[0][0] == "x"
-
-
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     import torch
 
     with profile_trace(str(tmp_path)) as log_dir:
-        with annotate("hnsw_span"):
+        with tracing.span("hnsw_span"):
             torch.ones(8) @ torch.ones(8)
     assert log_dir == str(tmp_path)
     trace = json.loads((tmp_path / "trace.json").read_text())
