@@ -23,7 +23,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      0.999, the steps a query takes (mean, p99, max), the latency floor
      (the longest walk times the recorded L2 round trip), one call and
      back to back, bound, yardstick, and the ptxas registers, spills and
-     shared memory of the instantiation run; HNSWIndex's search replayed
+     shared memory of the instantiation run; the expand kernel
+     (hop_expand, E1) against its plain version on the inputs of every body
+     of a B=1,024 search (bit for bit), and body 10 timed: one call, back
+     to back, and alone in a CUDA graph, beside the plain version, the byte
+     bound and the latency floor; HNSWIndex's search replayed
      from its captured CUDA graph against the eager sync-free search (bf16
      and int8 packs, sampled and hierarchy entries, B=1,024 and 32; rows
      and hop counts identical, phase 4's bars at balanced B=1,024),
@@ -51,8 +55,8 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      built, searched at its modes against its recall@10 bar, measured with
      the ported harness (qps_device at B=1024), and saved and loaded in
      .npz and .idx with identical rows. These families run no hand-written
-     kernel: phase 7 launches none of the eleven, and checks that it did
-     not;
+     kernel: phase 7 launches none of the hand-written kernels, and checks
+     that it did not;
   8. the large-N path at full width (large_path): a 500,000 x 768
      embedding-like corpus (bench.py's scale-sweep recipe, seed 7), the
      exact f32 flat index as ground truth for 1,024 of its rows, the HNSW
@@ -83,8 +87,8 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      cards.
 Phase 3 prints each kernel's ptxas registers and spill bytes on its [kernel]
 lines. Phases 4, 4b, 5, 6, 8 and 9 each zero the launch counts just before
-and read them just after; each must have run its kernels, and all twelve
-together. A search replayed from a CUDA graph counts the launches the graph
+and read them just after; each must have run its kernels, and all
+thirteen together. A search replayed from a CUDA graph counts the launches the graph
 holds (utils/graphs.py).
 Then one
 JSON line of per-kernel records, and as the last line
@@ -113,7 +117,7 @@ N, DIM, SEED = 31173, 768, 42
 KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
            "exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk",
            "mm_only", "mm_only_kmajor", "matmul_only", "matmul_min",
-           "greedy_descent")
+           "greedy_descent", "hop_expand")
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
@@ -144,6 +148,7 @@ KERNEL_ENTRIES = {
     "matmul_min": ("probes.cu", "16last_tile_kernelILb1E"),
     "greedy_descent": ("descent.cu",
                        "20descent_block_kernelI13__nv_bfloat16Li0ELi3E"),
+    "hop_expand": ("expand.cu", "17hop_expand_kernel"),
 }
 
 
@@ -883,6 +888,93 @@ def check_descent_kernel(torch, index, q, records):
         del vectors, args
 
 
+def check_expand_kernel(torch, index, q, records):
+    """E1 against its plain version at the Bible bulk shape: the inputs of
+    every body of one search of phase 4's graph (B=1,024, E 4, M0 32, ef
+    200, bf16 pack, sampled entries), recorded from the body's calls, each
+    held bit for bit; then body 10's inputs timed: one call, back to back,
+    and kernel and plain version each captured alone in a CUDA graph and
+    replayed back to back (what a body of the captured search pays), beside
+    the byte bound and the latency floor (a one-thread kernel, the tracer's
+    stamp, back to back). Launches made here are not counted."""
+    from hnsw_tpu_torch.bench.kernels import burst_ms
+    from hnsw_tpu_torch.models import HNSWIndex
+    from hnsw_tpu_torch.ops import expand
+    from hnsw_tpu_torch.utils import tracing
+
+    kernel, plain = expand.hop_expand, expand.hop_expand_plain
+    launches = kernel.launches
+    idx = HNSWIndex(index.corpus, index.graph, entry_sample=ENTRY_SAMPLE,
+                    entry_mode="sample", pack_precision="bf16")
+    bodies = []
+
+    def recording(adj0, sel_ids, beam_ids):
+        bodies.append((adj0, sel_ids.clone(), beam_ids.clone()))
+        return kernel(adj0, sel_ids, beam_ids)
+
+    recording.launches = 0
+    expand.hop_expand = recording        # the search looks it up per call
+    try:
+        idx._search_fn(K, "balanced", None, False)[0](q)
+    finally:
+        expand.hop_expand = kernel
+    torch.cuda.synchronize()
+    for i, args in enumerate(bodies):
+        got, want = kernel(*args), plain(*args)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"hop_expand body {i}: differs from the plain version")
+    args = bodies[10]
+    adj0, sel, beam = args
+    b, e = sel.shape
+    m0, ef = adj0.shape[1], beam.shape[1]
+
+    def graph_ms(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        return burst_ms(g.replay)
+
+    ms = time_ms(lambda: kernel(*args))
+    b2b_ms = burst_ms(lambda: kernel(*args))
+    graph_kernel_ms = graph_ms(lambda: kernel(*args))
+    plain_ms = time_ms(lambda: plain(*args))
+    graph_plain_ms = graph_ms(lambda: plain(*args))
+    state = torch.zeros(2 + len(tracing.PHASES), dtype=torch.int64,
+                        device=q.device)
+    stamps = tracing.stamp.launches
+    floor_ms = burst_ms(lambda: tracing.stamp(state, -1))
+    tracing.stamp.launches = stamps
+    kernel.launches = launches
+    selected = int((sel >= 0).sum())
+    nbytes = (b * e * 4 + selected * m0 * 4 + b * ef * 4
+              + b * e * m0 * 5)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    bms, by = max((bytes_ms, "bytes"), (floor_ms, "latency"))
+    valid = plain(*args)[1]
+    say("device_loop", stage="expand",
+        shape=f"B={b},E={e},M0={m0},ef={ef},N_pad={adj0.shape[0]}",
+        bodies_identical=len(bodies), body=10, selected_rows=selected,
+        valid_share=float(valid.float().mean()),
+        kernel_ms=ms, back_to_back_ms=b2b_ms, graph_ms=graph_kernel_ms,
+        plain_ms=plain_ms, plain_graph_ms=graph_plain_ms,
+        bytes=nbytes, bytes_bound_ms=bytes_ms, latency_floor_ms=floor_ms,
+        bound_ms=bms, bound_by=by,
+        shared_memory_bytes=expand.shared_bytes(e * m0, ef),
+        **ptxas_fields("hop_expand"))
+    records["hop_expand"] = dict(
+        name="hop_expand", route="cuda",
+        source="hnsw_tpu_torch/csrc/expand.cu",
+        replaces="hnsw_tpu/models/hnsw/search.py:308-316",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None)
+    del idx, bodies, args
+
+
 def hops_of(module, call):
     """Run call() with `module`'s hnsw_search_batch counting hops, and
     return the hop counts of its searches."""
@@ -919,6 +1011,7 @@ def device_loop_path(torch, index, data, records):
     q1024 = corpus.pad_queries(data[:1024])
     _, truth = FlatIndex(corpus).search_batch(q1024, K)
     check_descent_kernel(torch, index, q1024, records)
+    check_expand_kernel(torch, index, q1024, records)
     torch.cuda.empty_cache()
 
     kernels = all_kernels()
@@ -1020,7 +1113,8 @@ def device_loop_path(torch, index, data, records):
 
     launches = {fn.__name__: fn.launches for fn in kernels}
     say("device_loop", launches=json.dumps(launches))
-    for name in ("greedy_descent", "hop_score", "hop_score_int8"):
+    for name in ("greedy_descent", "hop_score", "hop_score_int8",
+                 "hop_expand"):
         check(launches[name] > 0, f"{name} was not launched in phase 4b")
     return launches
 

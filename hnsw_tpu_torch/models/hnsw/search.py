@@ -27,10 +27,11 @@ re-scored in f32, so reported distances are exact.
 
 With device tracing on (``utils/tracing.py``) the search marks its phases,
 ``entry`` (the descent or the sampled entry, and the seed), per body
-``select``, ``expand`` (adjacency gather, dedupe, in-beam test), ``score``
-and ``merge``, then ``rerank``; the card's loop also counts its useful work
-in ``count`` phases of its own (``_count_hops``). Off, it launches what it
-did without them.
+``select``, ``expand`` (adjacency gather, dedupe, in-beam test: on the card
+one launch of the kernel of ``ops/expand.py``), ``score`` and ``merge``,
+then ``rerank``; the card's loop also counts its useful work in ``count``
+phases of its own (``_count_hops``). Off, it launches what it did without
+them.
 """
 
 from __future__ import annotations
@@ -111,27 +112,21 @@ def _hops_fixed(body, state, max_hops: int, count: bool):
     return state, hops
 
 
-def _count_hops(hops, max_hops: int, slots: int, active, valid, dev):
+def _count_hops(hops, max_hops: int, slots: int, active, valid,
+                expanded: int, dev):
     """The card's loop's useful work, into the tracer's counters: the bodies
     run, those needed (the trip count `hops`), each body's queries still
     active after its stop rule (`active`, a device scalar a body), the
-    slots scored (`slots` a body: B x E x M0) and those left valid after
-    the dedupe and the in-beam test (`valid`, a device scalar a body)."""
+    slots scored (`slots` a body: B x E x M0), those left valid after the
+    dedupe and the in-beam test (`valid`, a device scalar a body), and the
+    bodies whose expand launched the kernel of ops/expand.py (`expanded`,
+    its launches counted while the loop ran)."""
     tracing.count("hop.bodies_run", max_hops, dev)
     tracing.count("hop.bodies_needed", hops)
     tracing.count("hop.query_bodies_active", torch.stack(active).sum())
     tracing.count("hop.slots_scored", max_hops * slots, dev)
     tracing.count("hop.slots_valid", torch.stack(valid).sum())
-
-
-def _dedupe_row(ids, valid):
-    """Within-row dedupe: mark later duplicates invalid. ids: [B, C]."""
-    eq = ids[:, :, None] == ids[:, None, :]                 # [B, j, i]
-    c = ids.shape[-1]
-    earlier = torch.tril(torch.ones((c, c), dtype=torch.bool,
-                                    device=ids.device), diagonal=-1)
-    dup = torch.any(eq & earlier & valid[:, None, :], dim=-1)
-    return valid & ~dup
+    tracing.count("hop.expand_kernel_bodies", expanded, dev)
 
 
 def hnsw_search_batch(*args, debug_hops: bool = False, **kwargs):
@@ -176,6 +171,7 @@ def _search_batch(
     [B, k], rows int32 [B, k], hops): rows = -1 for missing; hops is the
     hop count, an int on the CPU and a device scalar on the card (None there
     unless debug_hops), which a captured graph returns without a sync."""
+    from hnsw_tpu_torch.ops.expand import hop_expand
     from hnsw_tpu_torch.ops.hop import hop_score, hop_score_int8
 
     metric = Metric.coerce(metric)
@@ -255,34 +251,33 @@ def _search_batch(
                              dim=-1)                        # [B, E]
 
         tracing.mark("expand", dev)
-        sel_rows = torch.clamp(sel_ids, min=0)
-        nb = adj0[sel_rows]                                 # [B, E, M0]
-        nb = torch.where((sel_ids >= 0)[:, :, None], nb, -1).reshape(b, c)
-        valid = _dedupe_row(nb, nb >= 0)
-        # drop candidates already in the beam (every node that is or ever
-        # was competitive — evicted nodes cannot return)
-        in_beam = torch.any(nb[:, :, None] == beam_ids[:, None, :], dim=-1)
-        valid = valid & ~in_beam
+        # the kernel of ops/expand.py on a CUDA tensor (one launch), its
+        # plain operators on the CPU: the E rows' neighbours in slot order,
+        # -1 and not valid where unselected, a later duplicate or in the
+        # beam (every node that is or ever was competitive: evicted nodes
+        # cannot return)
+        cand, valid = hop_expand(adj0, sel_ids, beam_ids)   # [B, E*M0]
 
         tracing.mark("score", dev)
         if nbr_pack is not None:
             # bf16 packs get csq from the gathered block itself; int8 packs
-            # return raw code dots, dequantized with the per-row scale
+            # return raw code dots, dequantized with the per-row scale;
+            # hop_score reads row 0 for an unselected (-1) row
             if nbr_scale is not None:
+                sel_rows = torch.clamp(sel_ids, min=0)
                 dots = hop_score_int8(nbr_pack, q_kernel, sel_rows)
                 dots = dots * nbr_scale[sel_rows].reshape(b, c)
                 c_sq = nbr_sq[sel_rows].reshape(b, c)
             else:
-                dots, c_sq = hop_score(nbr_pack, q_kernel, sel_rows)
+                dots, c_sq = hop_score(nbr_pack, q_kernel, sel_ids)
             d_nb = torch.where(valid, _dist_bc(dots, q_sq_loop, c_sq, metric),
                                BIG)
         else:
-            d_nb = _score(q_loop, torch.clamp(nb, min=0), loop_vecs,
+            d_nb = _score(q_loop, torch.clamp(cand, min=0), loop_vecs,
                           v_sq_loop, metric, valid)
         tracing.mark("merge", dev)
         beam_d, beam_ids, beam_exp = _beam_merge(
-            beam_d, beam_ids, beam_exp, d_nb, torch.where(valid, nb, -1), ef,
-            force=merge)
+            beam_d, beam_ids, beam_exp, d_nb, cand, ef, force=merge)
         if tally is not None:
             tracing.mark("count", dev)
             tally[0].append(active.sum())
@@ -294,9 +289,11 @@ def _search_batch(
     if fixed:
         if tally is not None:
             tracing.mark("count", dev)
+        launched = hop_expand.launches
         state, hops = _hops_fixed(body, state, max_hops, debug_hops)
         if tally is not None:
-            _count_hops(hops, max_hops, b * c, *tally, dev)
+            _count_hops(hops, max_hops, b * c, *tally,
+                        hop_expand.launches - launched, dev)
     else:
         hops = 0
         while hops < max_hops and bool(state[3].any()):

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu", "descent.cu",
-           "trace.cu")
+           "trace.cu", "expand.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -90,6 +90,13 @@ SIGNATURES = {
     "trace.cu": {
         # state, the phase the mark closes (< 0: none), stream
         "trace_stamp": (P, I, P),
+    },
+    "expand.cu": {
+        # adj0, sel, beam, cand, valid, B, E, M0, ef, N_pad, stream
+        "hop_expand": (P, P, P, P, P, I, I, I, I, I, P),
+        # C, ef: the dynamic shared memory of a block, 0 where it does not
+        # fit
+        "hop_expand_shared_bytes": (I, I),
     },
 }
 

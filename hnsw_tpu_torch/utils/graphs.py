@@ -27,12 +27,13 @@ from hnsw_tpu_torch.utils import tracing
 
 def kernel_wrappers():
     """Every wrapper of a hand-written kernel, each with its `launches`."""
-    from hnsw_tpu_torch.ops import descent, hop, probes, scan
-    return (hop.hop_score, hop.hop_score_int8, descent.greedy_descent,
-            scan.bucket_topk, scan.int8_bucket_topk, scan.exact_topk_sweep,
-            scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
-            probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
-            probes.matmul_min, tracing.stamp)
+    from hnsw_tpu_torch.ops import descent, expand, hop, probes, scan
+    return (hop.hop_score, hop.hop_score_int8, expand.hop_expand,
+            descent.greedy_descent, scan.bucket_topk, scan.int8_bucket_topk,
+            scan.exact_topk_sweep, scan.int8_sweep_topk,
+            scan.int8_packed_topk, probes.mm_only, probes.mm_only_nt,
+            probes.mm_only_kmajor, probes.matmul_only, probes.matmul_min,
+            tracing.stamp)
 
 
 def _clone(out):

@@ -23,7 +23,7 @@ from hnsw_tpu_torch.models import (FlatIndex, HNSWIndex, IVFHNSWIndex,
                                    build_ivf_hnsw_index,
                                    build_partitioned_hnsw)
 from hnsw_tpu_torch.models.flat import quantize_rows
-from hnsw_tpu_torch.ops import descent, hop, probes, scan
+from hnsw_tpu_torch.ops import descent, expand, hop, probes, scan
 from hnsw_tpu_torch.types import Corpus
 from hnsw_tpu_torch.utils.graphs import CapturedCall, kernel_wrappers
 
@@ -527,12 +527,89 @@ def test_families_on_the_card_match_the_plain_path(cuda_device):
         gpu = build(data, device=cuda_device, **kw)
         cpu = cls.from_state(Corpus.from_array(data, device="cpu"),
                              gpu.to_state())
-        before = hop.hop_score.launches
+        before = (hop.hop_score.launches, expand.hop_expand.launches)
         _, gr = gpu.search_batch(q, 10, "balanced")
-        assert hop.hop_score.launches > before
+        assert hop.hop_score.launches > before[0]
+        assert expand.hop_expand.launches > before[1]
         _, cr = cpu.search_batch(q, 10, "balanced")
         assert (gr.cpu() == cr).all(dim=1).float().mean() >= 0.99
         assert bool((gr >= 0).all())
+
+
+def _expand_inputs(b, e, m0, ef, n, device, kind="mixed", seed=0):
+    """adj0 [n, m0] over the n rows (a tenth of the slots -1, so rows repeat
+    ids and share them at small n), sel_ids [b, e] with a row selected twice
+    in every third query and 15% -1, and a beam of ef that holds some of the
+    query's candidates and other rows, then -1 slots. kind "unselected":
+    every sel_id -1; "all_in_beam": each beam holds all its candidates."""
+    g = torch.Generator().manual_seed(seed)
+    adj0 = torch.randint(0, n, (n, m0), generator=g, dtype=torch.int32)
+    adj0[torch.rand((n, m0), generator=g) < 0.1] = -1
+    sel = torch.randint(0, n, (b, e), generator=g, dtype=torch.int32)
+    if e > 1:
+        sel[::3, 1] = sel[::3, 0]
+    sel[torch.rand((b, e), generator=g) < 0.15] = -1
+    if kind == "unselected":
+        sel[:] = -1
+    nb = torch.where(sel[:, :, None] >= 0, adj0[sel.clamp(min=0).long()],
+                     -1).reshape(b, -1)
+    pool = torch.cat([nb, torch.randint(0, n, (b, ef), generator=g,
+                                        dtype=torch.int32)], dim=1)
+    pick = torch.rand(pool.shape, generator=g).argsort(dim=1)[:, :ef]
+    beam = torch.gather(pool, 1, pick)
+    filled = torch.randint(0, ef + 1, (b, 1), generator=g)
+    beam = torch.where(torch.arange(ef)[None, :] < filled, beam, -1)
+    if kind == "all_in_beam":
+        c = nb.shape[1]
+        beam[:, :c] = nb
+    return tuple(t.contiguous().to(device) for t in (adj0, sel, beam))
+
+
+# (B, E, M0, ef, N, kind): the three cells' bodies (B = 1,024 and 100, E 4,
+# M0 32, ef 200 over the Bible corpus's rows); B = 1; C = 21 with ef not a
+# multiple of four; C = 512; a beam of 20,000 (80 KB of shared memory, past
+# the 48 KB default); C = 1,500 (warps step over the slots); no row
+# selected; every candidate already in the beam
+EXPAND_SHAPES = [(1024, 4, 32, 200, 31173, "mixed"),
+                 (100, 4, 32, 200, 31173, "mixed"),
+                 (1024, 4, 32, 200, 300, "mixed"),
+                 (1, 4, 32, 200, 100, "mixed"), (37, 3, 7, 50, 40, "mixed"),
+                 (64, 8, 64, 300, 200, "mixed"),
+                 (8, 4, 32, 20000, 5000, "mixed"),
+                 (5, 5, 300, 13, 900, "mixed"),
+                 (256, 4, 32, 200, 300, "unselected"),
+                 (256, 4, 32, 200, 300, "all_in_beam")]
+
+
+@pytest.mark.parametrize("b,e,m0,ef,n,kind", EXPAND_SHAPES)
+def test_expand_kernel_is_the_plain_version(b, e, m0, ef, n, kind,
+                                            cuda_device):
+    """hop_expand on the card: the plain version's candidates and flags bit
+    for bit, one launch a call."""
+    adj0, sel, beam = _expand_inputs(b, e, m0, ef, n, cuda_device, kind)
+    before = expand.hop_expand.launches
+    cand, valid = expand.hop_expand(adj0, sel, beam)
+    torch.cuda.synchronize()
+    assert expand.hop_expand.launches == before + 1
+    want_c, want_v = expand.hop_expand_plain(adj0, sel, beam)
+    assert cand.dtype == torch.int32 and valid.dtype == torch.bool
+    assert torch.equal(cand, want_c) and torch.equal(valid, want_v)
+    if kind != "mixed":
+        assert not bool(valid.any())
+
+
+def test_expand_kernel_refuses_what_it_cannot_take(cuda_device):
+    adj0, sel, beam = _expand_inputs(4, 4, 32, 200, 300, cuda_device)
+    with pytest.raises(ValueError):          # a CPU / CUDA mix
+        expand.hop_expand(adj0, sel.cpu(), beam)
+    with pytest.raises(ValueError):          # int64 rows
+        expand.hop_expand(adj0, sel.long(), beam)
+    with pytest.raises(ValueError):          # a strided beam
+        expand.hop_expand(adj0, sel, beam[:, ::2])
+    # a beam of 60,000 ids: 240 KB of shared memory, past a block's 227
+    wide = torch.full((4, 60_000), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        expand.hop_expand(adj0, sel, wide)
 
 
 def _descent_inputs(d, m, dtype, metric, device, duplicates=False):
@@ -619,9 +696,10 @@ def _launches():
 def test_search_is_captured_in_one_cuda_graph(cuda_device):
     """hnsw_search_batch (the entry() twin: hierarchy descent, no pack)
     captured whole in one CUDA graph: capturing counts no launch, each
-    replay adds the launches the graph holds, and two replays with other
-    queries each give the rows and distances of their eager runs, the
-    first result untouched by the second replay."""
+    replay adds the launches the graph holds (the descent, and the expand
+    kernel once a body), and two replays with other queries each give the
+    rows and distances of their eager runs, the first result untouched by
+    the second replay."""
     fn, args = entry()
     run = lambda q: fn(*args[:5], q)                     # noqa: E731
     q1 = args[5]
@@ -629,13 +707,15 @@ def test_search_is_captured_in_one_cuda_graph(cuda_device):
     e1, e2 = run(q1), run(q2)
     before = _launches()
     call = CapturedCall(run, q1)
-    assert call.launches == [(descent.greedy_descent, 1)]
+    max_hops = 64 // 4 + 12
+    assert call.launches == [(expand.hop_expand, max_hops),
+                             (descent.greedy_descent, 1)]
     warm = [a - b for a, b in zip(_launches(), before)]  # the eager warm-up
     r1 = call(q1)
     r2 = call(q2)
     after = [a - b - w for a, b, w in zip(_launches(), before, warm)]
-    assert after == [2 if w is descent.greedy_descent else 0
-                     for w in kernel_wrappers()]
+    per_replay = dict(call.launches)
+    assert after == [2 * per_replay.get(w, 0) for w in kernel_wrappers()]
     for got, want in ((r1, e1), (r2, e2)):
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
@@ -687,9 +767,10 @@ def _small_card_index(cuda_device, **kw):
 
 def test_untraced_capture_launches_what_it_did(cuda_device):
     """Device tracing off, the captured search holds the hand-written
-    kernels it held before the tracer (max_hops hop launches, no mark);
-    on, the same, and the marks: the entry, a count before the loop, five a
-    body (select, expand, score, merge, count), the re-rank and the end."""
+    kernels it held before the tracer (max_hops hop launches and max_hops
+    expand launches, no mark); on, the same, and the marks: the entry, a
+    count before the loop, five a body (select, expand, score, merge,
+    count), the re-rank and the end."""
     from hnsw_tpu_torch.utils import tracing
 
     idx, q = _small_card_index(cuda_device)
@@ -697,7 +778,8 @@ def test_untraced_capture_launches_what_it_did(cuda_device):
     tracing.enable_device(False)
     idx.search_batch(q, 10, "balanced")
     (call,) = idx._graphs.values()
-    assert call.launches == [(hop.hop_score, max_hops)]
+    assert call.launches == [(hop.hop_score, max_hops),
+                             (expand.hop_expand, max_hops)]
     try:
         tracing.enable_device(True)
         idx.search_batch(q, 10, "balanced")
@@ -707,6 +789,7 @@ def test_untraced_capture_launches_what_it_did(cuda_device):
     traced = list(idx._graphs.values())[-1]
     assert len(idx._graphs) == 2
     assert traced.launches == [(hop.hop_score, max_hops),
+                               (expand.hop_expand, max_hops),
                                (tracing.stamp, 4 + 5 * max_hops)]
 
 
@@ -751,3 +834,4 @@ def test_traced_capture_phases_sum_to_its_replays(entry_mode, cuda_device):
     assert 0 < c["hop.query_bodies_active"] <= 64 * c["hop.bodies_run"]
     assert c["hop.slots_scored"] == reps * max_hops * 64 * 4 * idx.graph.m0
     assert 0 < c["hop.slots_valid"] <= c["hop.slots_scored"]
+    assert c["hop.expand_kernel_bodies"] == c["hop.bodies_run"]
