@@ -1,0 +1,13 @@
+"""build.large.cells_s: mean seconds of the program's hnsw.build.large.cells
+span, the padded score arrays and the per-cell candidate pass, in the layer
+that the clustered builder (models/hnsw/build_large.py) builds, closed after
+a wait for its device work, over the set-up's timed builds of the whole
+corpus (benchmark/program_trace.py). None where no timed build ran that
+builder."""
+
+from benchmark import program_trace
+
+
+def read(ctx):
+    pt = program_trace.get(ctx)
+    return pt.mean("builds", "cells") if pt else None

@@ -1,0 +1,13 @@
+"""build.large.kmeans_s: mean seconds of the program's hnsw.build.large.kmeans
+span, train_kmeans and the cells' members and candidate pools, in the layer
+that the clustered builder (models/hnsw/build_large.py) builds, closed after
+a wait for its device work, over the set-up's timed builds of the whole corpus
+(benchmark/program_trace.py). None where no timed build ran that builder.
+"""
+
+from benchmark import program_trace
+
+
+def read(ctx):
+    pt = program_trace.get(ctx)
+    return pt.mean("builds", "kmeans") if pt else None

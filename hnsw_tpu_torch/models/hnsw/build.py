@@ -469,7 +469,10 @@ def build_graph(
 ) -> HNSWGraph:
     """Build the full hierarchy on the corpus's device. k_cand is the
     exact-kNN candidate pool fed to the heuristic. Layers of more than
-    build_large.LARGE_N rows take the bucketed builder. Records the span
+    build_large.LARGE_N rows take the bucketed builder, whose cells pool
+    the rows that have them among their nearest centroids (spill: the
+    reference's cell-to-cell probes leave clusters that k-means split in
+    pieces the search cannot cross). Records the span
     hnsw.build (attribute rows) and inside it hnsw.build.layers (layer 0's
     dispatch and the upper layers built on the host), .fetch (waiting for
     the device layers) and .repair (bridge_components)."""
@@ -517,7 +520,7 @@ def build_graph(
                 metric=metric, seed=seed,
                 n_probe_clusters=large_probe_clusters,
                 refine_rounds=large_refine_rounds, precision=build_precision,
-                progress=progress)
+                spill=True, progress=progress)
 
         # layers past LARGE_N build synchronously with the bucketed builder;
         # the others are dispatched here and fetched after the host layers

@@ -5,6 +5,13 @@ The exact all-pairs builder (build.py) stops being cheap past ``LARGE_N``
 rows. This builder bounds candidate generation to O(N * pool * D): k-means
 buckets the layer into ~``cluster_size``-row cells, and each node's exact-kNN
 candidate pool is its own cell plus the ``n_probe_clusters`` nearest cells.
+With ``spill`` (what ``build_graph`` asks for) a cell's pool is instead every
+row that has the cell among its ``n_probe_clusters + 1`` nearest centroids:
+a small cluster that k-means gives no centroid of its own is split among
+foreign cells whose centroids lie about equally far from all its rows, and
+the cell-to-cell probes need not join those pieces, which the search then
+cannot cross (recall 0.92 at 290,000 x 256, 64 topics; the exact builder
+0.999), while every piece's rows share centroids among their nearest.
 Candidates then flow through the same neighbour-selection heuristic and
 reverse-edge symmetrization as the exact builder; only candidate generation
 is approximate. ``refine_rounds`` of NN-descent (each node re-selects from
@@ -33,6 +40,7 @@ reverse-edge group start where the reference's can drop some (ROADMAP §C).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 
 import numpy as np
@@ -46,6 +54,7 @@ from hnsw_tpu_torch.ops.distance import BIG, _dist_bc, as_bf16_f32
 from hnsw_tpu_torch.ops.kmeans import train_kmeans
 from hnsw_tpu_torch.ops.topk import top_k_ascending
 from hnsw_tpu_torch.types import Metric
+from hnsw_tpu_torch.utils import tracing
 
 # threshold at which build_graph delegates here
 LARGE_N = 150_000
@@ -56,6 +65,31 @@ REFINE_BUDGET_BYTES = 1 << 30
 _BIG_ID = 1 << 30
 
 log = logging.getLogger(__name__)
+
+
+def _wait(dev) -> None:
+    """Wait for the work queued on a CUDA device (on the CPU it is done)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def _stage(name: str, dev, **attrs):
+    """The span `name` around one stage of the layer, closed after the
+    device's work queued inside it, so that it times that work."""
+    with tracing.span(name, **attrs):
+        yield
+        _wait(dev)
+
+
+def _rows_by_cell(near: np.ndarray, kk: int) -> list:
+    """[rows, ascending, whose row of near [ns, p] holds cell c, for c in
+    range(kk)], from one stable sort."""
+    flat = near.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    bounds = np.searchsorted(flat[order], np.arange(kk + 1))
+    rows = order // near.shape[1]
+    return [rows[bounds[c]:bounds[c + 1]] for c in range(kk)]
 
 
 def _rows_within(budget: int, per_row: int) -> int:
@@ -227,6 +261,7 @@ def build_layer_clustered(
     seed: int = 42,
     tile: int = 1024,
     precision: str = "bf16",
+    spill: bool = False,
     progress=None,            # callable(stage, frac): "large_kmeans",
                               # "large_cells", "large_sym{i}",
                               # "large_refine{i}", "large_fetch"
@@ -234,7 +269,21 @@ def build_layer_clustered(
     """One-layer adjacency via bucketed candidate generation, polished by
     refine_rounds of NN-descent (_refine_fused). Returns [ns, cap] of
     GLOBAL row ids (-1 padded). Logs the plan it chose (cell count, largest
-    cell, pads, chunk rows) at INFO on this module's logger."""
+    cell, pads, chunk rows) at INFO on this module's logger. A cell's pool
+    is its members and those of the n_probe_clusters cells whose centroids
+    are nearest its own (the reference's); with spill, every row that has
+    the cell among its n_probe_clusters + 1 nearest centroids, and a row's
+    cell is its nearest centroid's.
+
+    Records the span hnsw.build.large (attributes: rows, cells and the
+    plan's largest_pool, pool_pad, cell_chunk_rows, refine_chunk_rows,
+    tile) and inside it four consecutive stages, each closed after a wait
+    for its device work: .kmeans (train_kmeans and the cells' members and
+    pools), .cells (the padded score arrays and the per-cell
+    candidate pass), .symmetrize (the first _symmetrize_fused) and .refine
+    (every NN-descent round with its re-symmetrize; attribute rounds, 0
+    where the layer is one cell's size or less). The adjacency's fetch
+    ends the outer span."""
     def _tick(stage, frac=0.0):
         if progress is not None:
             progress(stage, frac)
@@ -245,91 +294,117 @@ def build_layer_clustered(
     member_rows = np.asarray(member_rows, np.int32)
     kk = max(2, ns // cluster_size)
 
-    # layer 0's member set is the identity (callers pass sorted unique rows,
-    # so first == 0 and last == ns - 1 imply arange): use the corpus arrays
-    if member_rows[0] == 0 and member_rows[-1] == ns - 1:
-        sub, sub_sq = vectors, v_sq
-    else:
-        gather = torch.from_numpy(member_rows.astype(np.int64)).to(dev)
-        sub, sub_sq = vectors[gather], v_sq[gather]
-    _tick("large_kmeans")
-    cents, assign_t = train_kmeans(sub, sub_sq, ns, k=kk, seed=seed, iters=3,
-                                   metric=metric)
-    assign = assign_t.cpu().numpy()[:ns]
-    cents_np = cents.cpu().numpy()
+    with tracing.span("hnsw.build.large", rows=ns, cells=kk) as large:
+        with _stage("hnsw.build.large.kmeans", dev):
+            # layer 0's member set is the identity (callers pass sorted
+            # unique rows, so first == 0 and last == ns - 1 imply arange):
+            # use the corpus arrays
+            if member_rows[0] == 0 and member_rows[-1] == ns - 1:
+                sub, sub_sq = vectors, v_sq
+            else:
+                gather = torch.from_numpy(member_rows.astype(np.int64)).to(dev)
+                sub, sub_sq = vectors[gather], v_sq[gather]
+            _tick("large_kmeans")
+            cents, assign_t = train_kmeans(sub, sub_sq, ns, k=kk, seed=seed,
+                                           iters=3, metric=metric)
+            if spill:
+                # each row joins the pools of its n_probe_clusters + 1
+                # nearest centroids; its cell is the nearest
+                c_sq = torch.sum(cents * cents, dim=-1)
+                near_d = _dist_bc(torch.matmul(sub[:ns].float(), cents.T),
+                                  sub_sq[:ns, None], c_sq[None, :], metric)
+                near = top_k_ascending(
+                    near_d, min(n_probe_clusters + 1, kk))[1].cpu().numpy()
+                del near_d
+                members = _rows_by_cell(near[:, :1], kk)
+                pool_of = _rows_by_cell(near, kk)
+            else:
+                assign = assign_t.cpu().numpy()[:ns]
+                cents_np = cents.cpu().numpy()
 
-    # neighbour cells by centroid distance (self first)
-    cd = cents_np @ cents_np.T
-    csq = (cents_np * cents_np).sum(1)
-    if metric == Metric.EUCLIDEAN:
-        cdist = csq[:, None] + csq[None, :] - 2 * cd
-    else:
-        cdist = -cd / np.maximum(
-            np.sqrt(csq[:, None] * csq[None, :]), 1e-12)
-    np.fill_diagonal(cdist, -np.inf)      # self always first
-    order = np.argsort(cdist, axis=1)
-    probe = order[:, : n_probe_clusters + 1]
-    probe[:, 0] = np.arange(kk)
+                # neighbour cells by centroid distance (self first)
+                cd = cents_np @ cents_np.T
+                csq = (cents_np * cents_np).sum(1)
+                if metric == Metric.EUCLIDEAN:
+                    cdist = csq[:, None] + csq[None, :] - 2 * cd
+                else:
+                    cdist = -cd / np.maximum(
+                        np.sqrt(csq[:, None] * csq[None, :]), 1e-12)
+                np.fill_diagonal(cdist, -np.inf)      # self always first
+                order = np.argsort(cdist, axis=1)
+                probe = order[:, : n_probe_clusters + 1]
+                probe[:, 0] = np.arange(kk)
 
-    members = [np.nonzero(assign == c)[0] for c in range(kk)]
-    cmax = max((len(m) for m in members), default=1)
-    pool_pad = _pow2_at_least(max(cmax * (n_probe_clusters + 1), 2), 1024)
+                members = [np.nonzero(assign == c)[0] for c in range(kk)]
+                pool_of = [np.concatenate([members[p] for p in probe[c]])
+                           for c in range(kk)]
+            cmax = max((len(m) for m in members), default=1)
+            pool_pad = _pow2_at_least(max(max(len(p) for p in pool_of), 2),
+                                      1024)
 
-    # one padded score array serves every pass: bf16 for "bf16", f32 for
-    # "highest"
-    ns_pad = ((ns + tile - 1) // tile) * tile
-    dt = torch.bfloat16 if precision == "bf16" else torch.float32
-    src = torch.zeros((ns_pad, sub.shape[1]), dtype=dt, device=dev)
-    src[:ns] = sub[:ns].to(dt)
-    src_sq = torch.zeros((ns_pad,), dtype=torch.float32, device=dev)
-    src_sq[:ns] = sub_sq[:ns]
-    del sub, sub_sq
+        # --- per-cell candidate pass: each cell's live members against its
+        # live pool, in budgeted row chunks
+        with _stage("hnsw.build.large.cells", dev):
+            # one padded score array serves every pass: bf16 for "bf16", f32
+            # for "highest"
+            ns_pad = ((ns + tile - 1) // tile) * tile
+            dt = torch.bfloat16 if precision == "bf16" else torch.float32
+            src = torch.zeros((ns_pad, sub.shape[1]), dtype=dt, device=dev)
+            src[:ns] = sub[:ns].to(dt)
+            src_sq = torch.zeros((ns_pad,), dtype=torch.float32, device=dev)
+            src_sq[:ns] = sub_sq[:ns]
+            del sub, sub_sq
 
-    # --- per-cell candidate pass: each cell's live members against its
-    # live pool, in budgeted row chunks
-    _tick("large_cells")
-    fwd = torch.full((ns_pad, cap), NONE, dtype=torch.int32, device=dev)
-    kq = min(k_cand + 1, pool_pad)
-    live_cells = [c for c in range(kk) if len(members[c])]
-    mt = _pow2_at_least(max((len(members[c]) for c in live_cells),
-                            default=1), min(tile, pool_pad))
-    pools = [np.concatenate([members[p] for p in probe[c]])[:pool_pad]
-             for c in live_cells]
-    d = src.shape[1]
-    largest = max(len(p) for p in pools)
-    log.info("plan ns=%d kk=%d cmax=%d mt=%d pool_pad=%d largest_pool=%d "
-             "cell_chunk_rows=%d refine_chunk_rows=%d tile=%d", ns, kk, cmax,
-             mt, pool_pad, largest, _cell_rows(largest, kq, d),
-             _refine_rows(cap + cap * cap, d), tile)
-    for c, pool in zip(live_cells, pools):
-        mc = torch.from_numpy(members[c].astype(np.int64)).to(dev)
-        sel = _cell_build(src, src_sq,
-                          torch.from_numpy(pool.astype(np.int64)).to(dev), mc,
-                          len(pool), cap=cap, kq=kq, metric=metric,
-                          precision=precision,
-                          chunk=_cell_rows(len(pool), kq, d))
-        fwd = _scatter_rows(fwd, mc, sel)
+            _tick("large_cells")
+            fwd = torch.full((ns_pad, cap), NONE, dtype=torch.int32,
+                             device=dev)
+            kq = min(k_cand + 1, pool_pad)
+            live_cells = [c for c in range(kk) if len(members[c])]
+            mt = _pow2_at_least(max((len(members[c]) for c in live_cells),
+                                    default=1), min(tile, pool_pad))
+            pools = [pool_of[c] for c in live_cells]
+            d = src.shape[1]
+            largest = max(len(p) for p in pools)
+            plan = dict(largest_pool=largest, pool_pad=pool_pad,
+                        cell_chunk_rows=_cell_rows(largest, kq, d),
+                        refine_chunk_rows=_refine_rows(cap + cap * cap, d),
+                        tile=tile)
+            large.attrs.update(plan)
+            log.info("plan ns=%d kk=%d cmax=%d mt=%d pool_pad=%d "
+                     "largest_pool=%d cell_chunk_rows=%d refine_chunk_rows=%d "
+                     "tile=%d", ns, kk, cmax, mt, pool_pad, largest,
+                     plan["cell_chunk_rows"], plan["refine_chunk_rows"], tile)
+            for c, pool in zip(live_cells, pools):
+                mc = torch.from_numpy(members[c].astype(np.int64)).to(dev)
+                pt = torch.from_numpy(pool.astype(np.int64)).to(dev)
+                sel = _cell_build(src, src_sq, pt, mc, len(pool), cap=cap,
+                                  kq=kq, metric=metric, precision=precision,
+                                  chunk=_cell_rows(len(pool), kq, d))
+                fwd = _scatter_rows(fwd, mc, sel)
 
-    # --- symmetrize + NN-descent polish, all on the device
-    _tick("large_sym0")
-    out = _symmetrize_fused(src, src_sq, fwd, ns, cap=cap, metric=metric,
-                            tile=tile, precision=precision)
-    if refine_rounds > 0 and ns > cluster_size:
-        for i in range(refine_rounds):
-            _tick(f"large_refine{i + 1}")
-            fwd2 = _refine_fused(src, src_sq, out, ns, cap=cap,
-                                 kq=max(64, 2 * cap),
-                                 metric=metric, tile=tile,
-                                 chunk=_refine_rows(cap + cap * cap, d))
-            _tick(f"large_sym{i + 1}")
-            out = _symmetrize_fused(src, src_sq, fwd2, ns, cap=cap,
+        # --- symmetrize + NN-descent polish, all on the device
+        with _stage("hnsw.build.large.symmetrize", dev):
+            _tick("large_sym0")
+            out = _symmetrize_fused(src, src_sq, fwd, ns, cap=cap,
                                     metric=metric, tile=tile,
                                     precision=precision)
+        rounds = max(refine_rounds, 0) if ns > cluster_size else 0
+        with _stage("hnsw.build.large.refine", dev, rounds=rounds):
+            for i in range(rounds):
+                _tick(f"large_refine{i + 1}")
+                fwd2 = _refine_fused(src, src_sq, out, ns, cap=cap,
+                                     kq=max(64, 2 * cap),
+                                     metric=metric, tile=tile,
+                                     chunk=_refine_rows(cap + cap * cap, d))
+                _tick(f"large_sym{i + 1}")
+                out = _symmetrize_fused(src, src_sq, fwd2, ns, cap=cap,
+                                        metric=metric, tile=tile,
+                                        precision=precision)
 
-    # the one device -> host adjacency crossing of the layer
-    _tick("large_fetch")
-    out_local = out.cpu().numpy()[:ns]
-    _tick("large_fetch", 1.0)
+        # the one device -> host adjacency crossing of the layer
+        _tick("large_fetch")
+        out_local = out.cpu().numpy()[:ns]
+        _tick("large_fetch", 1.0)
     return np.where(out_local >= 0,
                     member_rows[np.maximum(out_local, 0)],
                     NONE).astype(np.int32)

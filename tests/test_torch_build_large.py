@@ -247,3 +247,34 @@ def test_build_hnsw_index_passes_the_large_options_on(monkeypatch):
         assert kw["cap"] == cap
     assert calls[1][1]["k_cand"] <= 32
     assert (idx.graph.adj0.numpy()[:1500] >= 0).any(axis=1).all()
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_build_graph_pools_rows_by_their_nearest_centroids(monkeypatch,
+                                                           spill):
+    """build_graph asks the bucketed builder for spill pools (a cell pools
+    every row that has it among its n_probe_clusters + 1 nearest
+    centroids). On 64 Zipf-sized topics in about 70 cells, the reference's
+    cell-to-cell pools leave topics that k-means split in pieces the search
+    cannot cross; the spill pools answer as the exact builder does."""
+    from hnsw_tpu_torch.io.datagen import generate_vectors
+    x = generate_vectors(3500, 64, distribution="embedding",
+                         num_clusters=64, seed=3)
+    corpus, queries = x[:3000], x[3000:]
+    truth = np.argsort(-(queries @ corpus.T), axis=1)[:, :10]
+    real = tlarge.build_layer_clustered
+    seen = []
+
+    def cells_of_43(*a, **kw):
+        seen.append(kw["spill"])
+        return real(*a, **dict(kw, cluster_size=43, spill=spill))
+    monkeypatch.setattr(tlarge, "LARGE_N", 2999)
+    monkeypatch.setattr(tlarge, "build_layer_clustered", cells_of_43)
+    idx = build_hnsw_index(corpus, M=16, device="cpu")
+    assert seen == [True]
+    _, rows = idx.search_batch(queries, 10, "balanced", ef=200)
+    got = recall(rows.numpy(), truth)
+    if spill:
+        assert got >= 0.99, got
+    else:
+        assert got < 0.97, got

@@ -282,3 +282,55 @@ def test_build_records_its_stage_spans(fresh, data):
         stages["hnsw.build.fetch"].start_ns
     assert stages["hnsw.build.fetch"].end_ns <= \
         stages["hnsw.build.repair"].start_ns
+
+
+STAGES = ("kmeans", "cells", "symmetrize", "refine")
+
+
+def test_clustered_layer_records_its_stage_spans(fresh, data, monkeypatch):
+    """A layer past LARGE_N records hnsw.build.large with the plan's counts
+    inside hnsw.build.layers, and under it the four stages in order, once
+    each, each closing after its wait for the device."""
+    from hnsw_tpu_torch.models.hnsw import build_large
+    monkeypatch.setattr(build_large, "LARGE_N", 1000)
+    real_build, real_wait = (build_large.build_layer_clustered,
+                             build_large._wait)
+    monkeypatch.setattr(build_large, "build_layer_clustered",
+                        lambda *a, **kw: real_build(*a, cluster_size=512,
+                                                    **kw))
+    waited = []
+
+    def wait(dev):
+        waited.append(tracing.TRACER._local.spans[-1].name)
+        real_wait(dev)
+
+    monkeypatch.setattr(build_large, "_wait", wait)
+    build_hnsw_index(data, M=8, device="cpu")
+    spans = tracing.collect().spans
+    root = next(s for s in spans if s.name == "hnsw.build")
+    layers = next(s for s in spans if s.name == "hnsw.build.layers")
+    large = [s for s in spans if s.name == "hnsw.build.large"]
+    assert len(large) == 1
+    large = large[0]
+    assert large.parent == layers.id and layers.parent == root.id
+    assert large.request == root.id
+    assert large.attrs["rows"] == len(data) and large.attrs["cells"] == 2
+    assert set(large.attrs) == {"rows", "cells", "largest_pool", "pool_pad",
+                                "cell_chunk_rows", "refine_chunk_rows",
+                                "tile"}
+    assert all(isinstance(v, int) and v > 0 for v in large.attrs.values())
+    stages = [s for s in spans if s.parent == large.id]
+    names = ["hnsw.build.large." + st for st in STAGES]
+    assert [s.name for s in stages] == names
+    assert waited == names
+    assert stages[-1].attrs == {"rounds": 1}
+    assert large.start_ns <= stages[0].start_ns
+    for a, b in zip(stages, stages[1:]):
+        assert a.end_ns <= b.start_ns
+    assert stages[-1].end_ns <= large.end_ns <= layers.end_ns
+    # benchmark/program_trace.py keys a build's spans by their last name
+    # part: no two of one build share one
+    parts = [s.name.rsplit(".", 1)[-1] for s in spans
+             if s.request == root.id and s.parent]
+    assert len(parts) == len(set(parts))
+    assert {"layers", "fetch", "repair", "large", *STAGES} == set(parts)
