@@ -27,7 +27,12 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
      (hop_expand, E1) against its plain version on the inputs of every body
      of a B=1,024 search (bit for bit), and body 10 timed: one call, back
      to back, and alone in a CUDA graph, beside the plain version, the byte
-     bound and the latency floor; HNSWIndex's search replayed
+     bound and the latency floor; the merge kernel (hop_merge, M1) against
+     its plain version on the inputs of every update of the same search
+     (the one before the loop and every body's), and body 10 timed: one
+     call, back to back, alone in a CUDA graph and as a node of a graph of
+     every body's call, beside the plain version, the byte bound and the
+     latency floor; HNSWIndex's search replayed
      from its captured CUDA graph against the eager sync-free search (bf16
      and int8 packs, sampled and hierarchy entries, B=1,024 and 32; rows
      and hop counts identical, phase 4's bars at balanced B=1,024),
@@ -117,7 +122,7 @@ N, DIM, SEED = 31173, 768, 42
 KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
            "exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk",
            "mm_only", "mm_only_kmajor", "matmul_only", "matmul_min",
-           "greedy_descent", "hop_expand")
+           "greedy_descent", "hop_expand", "hop_merge")
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
@@ -149,6 +154,7 @@ KERNEL_ENTRIES = {
     "greedy_descent": ("descent.cu",
                        "20descent_block_kernelI13__nv_bfloat16Li0ELi3E"),
     "hop_expand": ("expand.cu", "17hop_expand_kernel"),
+    "hop_merge": ("merge.cu", "16hop_merge_kernel"),
 }
 
 
@@ -888,6 +894,22 @@ def check_descent_kernel(torch, index, q, records):
         del vectors, args
 
 
+def graph_ms(torch, fn, nodes: int = 1) -> float:
+    """Device ms of fn() captured alone in a CUDA graph, replayed back to
+    back (after one eager run on a side stream), over the `nodes` calls of
+    one kernel that fn makes."""
+    from hnsw_tpu_torch.bench.kernels import burst_ms
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return burst_ms(g.replay) / nodes
+
+
 def check_expand_kernel(torch, index, q, records):
     """E1 against its plain version at the Bible bulk shape: the inputs of
     every body of one search of phase 4's graph (B=1,024, E 4, M0 32, ef
@@ -928,22 +950,11 @@ def check_expand_kernel(torch, index, q, records):
     b, e = sel.shape
     m0, ef = adj0.shape[1], beam.shape[1]
 
-    def graph_ms(fn):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            fn()
-        return burst_ms(g.replay)
-
     ms = time_ms(lambda: kernel(*args))
     b2b_ms = burst_ms(lambda: kernel(*args))
-    graph_kernel_ms = graph_ms(lambda: kernel(*args))
+    graph_kernel_ms = graph_ms(torch, lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args))
-    graph_plain_ms = graph_ms(lambda: plain(*args))
+    graph_plain_ms = graph_ms(torch, lambda: plain(*args))
     state = torch.zeros(2 + len(tracing.PHASES), dtype=torch.int64,
                         device=q.device)
     stamps = tracing.stamp.launches
@@ -973,6 +984,96 @@ def check_expand_kernel(torch, index, q, records):
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None)
     del idx, bodies, args
+
+
+def check_merge_kernel(torch, index, q, records):
+    """M1 against its plain version at the Bible bulk shape: the inputs of
+    every update of one search of phase 4's graph (B=1,024, E 4, M0 32, ef
+    200, bf16 pack, sampled entries: the select before the loop, with no
+    candidates, then the merge and next select of each of the 62 bodies),
+    recorded from the search's calls, each held bit for bit; then body 10's
+    inputs timed: one call, back to back, alone in a CUDA graph, and as a
+    node of a graph of every body's call (what a body of the captured
+    search pays), the plain version likewise, beside the byte bound and the
+    latency floor (the tracer's one-thread stamp, back to back and as a node
+    of a graph of as many). Launches made here are not counted."""
+    from hnsw_tpu_torch.bench.kernels import burst_ms
+    from hnsw_tpu_torch.models import HNSWIndex
+    from hnsw_tpu_torch.ops import merge
+    from hnsw_tpu_torch.utils import tracing
+
+    kernel, plain = merge.hop_merge, merge.hop_merge_plain
+    launches = kernel.launches
+    idx = HNSWIndex(index.corpus, index.graph, entry_sample=ENTRY_SAMPLE,
+                    entry_mode="sample", pack_precision="bf16")
+    calls = []
+
+    def recording(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args))
+        return kernel(*args)
+
+    recording.launches = 0
+    merge.hop_merge = recording          # the search looks it up per call
+    try:
+        idx._search_fn(K, "balanced", None, False)[0](q)
+    finally:
+        merge.hop_merge = kernel
+    torch.cuda.synchronize()
+    for i, args in enumerate(calls):
+        got, want = kernel(*args), plain(*args)
+        # distances as their bits; then ids, flags, sel_ids, active
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+              and all(torch.equal(g, w) for g, w in zip(got[1:], want[1:])),
+              f"hop_merge call {i}: differs from the plain version")
+    bodies = calls[1:]
+    args = bodies[10]
+    beam_d, cand_d, e = args[0], args[3], args[6]
+    b, ef = beam_d.shape
+    c = cand_d.shape[1]
+
+    def every_body(fn):
+        return lambda: [fn(*a) for a in bodies]
+
+    ms = time_ms(lambda: kernel(*args))
+    b2b_ms = burst_ms(lambda: kernel(*args))
+    graph_kernel_ms = graph_ms(torch, lambda: kernel(*args))
+    node_ms = graph_ms(torch, every_body(kernel), len(bodies))
+    plain_ms = time_ms(lambda: plain(*args))
+    graph_plain_ms = graph_ms(torch, lambda: plain(*args))
+    plain_node_ms = graph_ms(torch, every_body(plain), len(bodies))
+    state = torch.zeros(2 + len(tracing.PHASES), dtype=torch.int64,
+                        device=q.device)
+    stamps = tracing.stamp.launches
+    floor_ms = burst_ms(lambda: tracing.stamp(state, -1))
+    node_floor_ms = graph_ms(
+        torch, lambda: [tracing.stamp(state, -1) for _ in bodies],
+        len(bodies))
+    tracing.stamp.launches = stamps
+    kernel.launches = launches
+    # read: beam (d, id, exp), candidates (d, id), active; written: the
+    # beam, sel_ids, active
+    nbytes = b * (ef * 9 + c * 8 + 1) + b * (ef * 9 + e * 4 + 1)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    bms, by = max((bytes_ms, "bytes"), (node_floor_ms, "latency"))
+    active = kernel(*args)[4]
+    say("device_loop", stage="merge",
+        shape=f"B={b},E={e},C={c},ef={ef}", calls_identical=len(calls),
+        body=10, active_share=float(active.float().mean()),
+        kernel_ms=ms, back_to_back_ms=b2b_ms, graph_ms=graph_kernel_ms,
+        graph_node_ms=node_ms, plain_ms=plain_ms,
+        plain_graph_ms=graph_plain_ms, plain_graph_node_ms=plain_node_ms,
+        bytes=nbytes, bytes_bound_ms=bytes_ms, latency_floor_ms=floor_ms,
+        latency_floor_node_ms=node_floor_ms, bound_ms=bms, bound_by=by,
+        shared_memory_bytes=merge.shared_bytes(ef, c),
+        **ptxas_fields("hop_merge"))
+    records["hop_merge"] = dict(
+        name="hop_merge", route="cuda",
+        source="hnsw_tpu_torch/csrc/merge.cu",
+        replaces="hnsw_tpu/models/hnsw/search.py:293-306, 358-359",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None)
+    del idx, calls, bodies, args
 
 
 def hops_of(module, call):
@@ -1012,6 +1113,7 @@ def device_loop_path(torch, index, data, records):
     _, truth = FlatIndex(corpus).search_batch(q1024, K)
     check_descent_kernel(torch, index, q1024, records)
     check_expand_kernel(torch, index, q1024, records)
+    check_merge_kernel(torch, index, q1024, records)
     torch.cuda.empty_cache()
 
     kernels = all_kernels()
@@ -1114,7 +1216,7 @@ def device_loop_path(torch, index, data, records):
     launches = {fn.__name__: fn.launches for fn in kernels}
     say("device_loop", launches=json.dumps(launches))
     for name in ("greedy_descent", "hop_score", "hop_score_int8",
-                 "hop_expand"):
+                 "hop_expand", "hop_merge"):
         check(launches[name] > 0, f"{name} was not launched in phase 4b")
     return launches
 

@@ -25,13 +25,21 @@ hand-written kernels ``hop_score`` (bf16 pack) and ``hop_score_int8`` (int8
 codes). Scores inside the loop use the bf16 shadow; the final top-k is
 re-scored in f32, so reported distances are exact.
 
+A body's select reads only the beam that the previous body's merge left,
+so the default merge and the next body's select are one step,
+``ops/merge.py`` (on the card one launch of its kernel): the loop's state
+carries the selected rows, and one such step with no candidates makes the
+first body's select before the loop. A body is then expand, score, and
+merge with the next select.
+
 With device tracing on (``utils/tracing.py``) the search marks its phases,
-``entry`` (the descent or the sampled entry, and the seed), per body
-``select``, ``expand`` (adjacency gather, dedupe, in-beam test: on the card
-one launch of the kernel of ``ops/expand.py``), ``score`` and ``merge``,
-then ``rerank``; the card's loop also counts its useful work in ``count``
-phases of its own (``_count_hops``). Off, it launches what it did without
-them.
+``entry`` (the descent or the sampled entry, and the seed), ``select`` (the
+first body's, before the loop), per body ``expand`` (adjacency gather,
+dedupe, in-beam test: on the card one launch of the kernel of
+``ops/expand.py``), ``score`` and ``merge`` (the merge and the next body's
+select), then ``rerank``; the card's loop also counts its useful work in
+``count`` phases of its own (``_count_hops``). Off, it launches what it did
+without them.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 from hnsw_tpu_torch.ops.descent import greedy_descent
 from hnsw_tpu_torch.ops.distance import BIG, _dist_bc
 from hnsw_tpu_torch.ops.distance import shadow_score as _score
+from hnsw_tpu_torch.ops.merge import select_plain, sort_merge
 from hnsw_tpu_torch.ops.sort import bitonic_topk_presorted
 from hnsw_tpu_torch.ops.topk import top_k_ascending
 from hnsw_tpu_torch.types import Metric
@@ -52,9 +61,9 @@ def _beam_merge(beam_d, beam_i, beam_e, cand_d, cand_i, ef: int,
     """Top-ef merge of [beam ++ candidates] carrying (id, expanded) payload.
     Candidates are fresh (never expanded); the beam is ascending.
 
-    Default: one stable sort of the keys carrying the (id << 1) | expanded
-    payload (as the reference's one-key ``lax.sort``); -1 ids map to -2/-1
-    payloads whose arithmetic >> 1 restores -1. Variants behind force=:
+    Default: ``ops/merge.py:sort_merge``, one stable sort of the keys
+    carrying the payload, which the search runs fused with the next body's
+    select (``hop_merge``). Variants behind force=:
     "topk" (stable top-k + payload gathers), "onehot" (top-k + one-hot
     payload reduction), "bitonic" (the ops/sort.py network over the sorted
     beam and the unsorted candidates) and "approx". The reference's
@@ -66,15 +75,12 @@ def _beam_merge(beam_d, beam_i, beam_e, cand_d, cand_i, ef: int,
         kd, kv = bitonic_topk_presorted(beam_d, pay_beam, cand_d, cand_i << 1,
                                         ef)
         return kd, kv >> 1, (kv & 1) == 1
+    if force is None or force == "sort":
+        return sort_merge(beam_d, beam_i, beam_e, cand_d, cand_i)
     all_d = torch.cat([beam_d, cand_d], dim=-1)
     all_i = torch.cat([beam_i, cand_i], dim=-1)
     all_e = torch.cat([beam_e, torch.zeros_like(cand_d, dtype=torch.bool)],
                       dim=-1)
-    if force is None or force == "sort":
-        pay = (all_i << 1) | all_e.to(all_i.dtype)
-        kd, order = torch.sort(all_d, dim=-1, stable=True)
-        kp = torch.gather(pay, -1, order[..., :ef])
-        return kd[..., :ef], kp >> 1, (kp & 1) == 1
     kd, sel = top_k_ascending(all_d, ef)
     if force == "onehot":
         width = all_d.shape[-1]
@@ -100,33 +106,37 @@ def _hops_fixed(body, state, max_hops: int, count: bool):
     every candidate is invalid (BIG, -1), and the stable merge keeps the
     beam's (d, id, expanded) slots as they were. So rows and distances are
     those of the early-exit loop. `active` only ever falls, so adding
-    any(active) before each body counts the bodies the early-exit loop runs,
-    the reference's trip count (a device scalar; None unless `count` or
-    device tracing is on, whose counter hop.bodies_needed it feeds)."""
+    any(active) before each body (state[4]: the pending body's `active`
+    before its stop rule) counts the bodies the early-exit loop runs, the
+    reference's trip count (a device scalar; None unless `count` or device
+    tracing is on, whose counter hop.bodies_needed it feeds)."""
     hops = (torch.zeros((), dtype=torch.int32, device=state[0].device)
             if count or tracing.device_tracing() else None)
     for _ in range(max_hops):
         if hops is not None:
-            hops += state[3].any()
+            hops += state[4].any()
         state = body(*state)
     return state, hops
 
 
 def _count_hops(hops, max_hops: int, slots: int, active, valid,
-                expanded: int, dev):
+                expanded: int, merged: int, dev):
     """The card's loop's useful work, into the tracer's counters: the bodies
     run, those needed (the trip count `hops`), each body's queries still
     active after its stop rule (`active`, a device scalar a body), the
     slots scored (`slots` a body: B x E x M0), those left valid after the
-    dedupe and the in-beam test (`valid`, a device scalar a body), and the
-    bodies whose expand launched the kernel of ops/expand.py (`expanded`,
-    its launches counted while the loop ran)."""
+    dedupe and the in-beam test (`valid`, a device scalar a body), the
+    bodies whose expand launched the kernel of ops/expand.py (`expanded`)
+    and those whose merge and next select launched the kernel of
+    ops/merge.py (`merged`), each its launches counted while the loop
+    ran."""
     tracing.count("hop.bodies_run", max_hops, dev)
     tracing.count("hop.bodies_needed", hops)
     tracing.count("hop.query_bodies_active", torch.stack(active).sum())
     tracing.count("hop.slots_scored", max_hops * slots, dev)
     tracing.count("hop.slots_valid", torch.stack(valid).sum())
     tracing.count("hop.expand_kernel_bodies", expanded, dev)
+    tracing.count("hop.merge_kernel_bodies", merged, dev)
 
 
 def hnsw_search_batch(*args, debug_hops: bool = False, **kwargs):
@@ -173,6 +183,7 @@ def _search_batch(
     unless debug_hops), which a captured graph returns without a sync."""
     from hnsw_tpu_torch.ops.expand import hop_expand
     from hnsw_tpu_torch.ops.hop import hop_score, hop_score_int8
+    from hnsw_tpu_torch.ops.merge import hop_merge
 
     metric = Metric.coerce(metric)
     dev = vectors.device
@@ -226,7 +237,6 @@ def _search_batch(
         beam_d[:, 0] = d0
         beam_ids[:, 0] = cur
     beam_exp = torch.zeros((b, ef), dtype=torch.bool, device=dev)
-    e_iota = torch.arange(e, dtype=torch.int32, device=dev)
     q_kernel = q_loop.float().contiguous()
 
     fixed = _runs_fixed_length(dev)
@@ -234,22 +244,25 @@ def _search_batch(
     # queries and valid slots, in `count` phases of its own
     tally = ([], []) if fixed and tracing.device_tracing() else None
 
-    def body(beam_d, beam_ids, beam_exp, active):
-        tracing.mark("select", dev)
-        elig = (~beam_exp) & (beam_ids >= 0)
-        # the beam is sorted ascending, so the FIRST e eligible slots are the
-        # e best unexpanded candidates: rank-compact them with a cumsum
-        pos = torch.cumsum(elig.to(torch.int32), dim=-1) - 1
-        sel_d0 = torch.amin(torch.where(elig, beam_d, BIG), dim=-1)
-        # serial-equivalent stop rule: best unexpanded > worst beam member
-        worst = beam_d[:, -1]
-        active = active & (sel_d0 < BIG) & (sel_d0 <= worst)
-        take = elig & (pos < e) & active[:, None]
-        beam_exp = beam_exp | take
-        onehot = take[:, None, :] & (pos[:, None, :] == e_iota[None, :, None])
-        sel_ids = torch.amax(torch.where(onehot, beam_ids[:, None, :], -1),
-                             dim=-1)                        # [B, E]
+    def update(beam_d, beam_ids, beam_exp, d_nb, cand, active):
+        """The merge of a body's scored candidates (none before the loop)
+        and the next body's select: the kernel of ops/merge.py on a CUDA
+        tensor (one launch), its plain operators on the CPU; a merge
+        variant, then the plain select."""
+        if merge is None or merge == "sort":
+            if d_nb is None:
+                d_nb = torch.empty((b, 0), dtype=beam_d.dtype, device=dev)
+                cand = torch.empty((b, 0), dtype=torch.int32, device=dev)
+            return hop_merge(beam_d, beam_ids, beam_exp, d_nb, cand, active,
+                             e)
+        if d_nb is not None:
+            beam_d, beam_ids, beam_exp = _beam_merge(
+                beam_d, beam_ids, beam_exp, d_nb, cand, ef, force=merge)
+        return select_plain(beam_d, beam_ids, beam_exp, active, e)
 
+    def body(beam_d, beam_ids, beam_exp, sel_ids, _, active):
+        # sel_ids: this body's rows, selected where `active` (after this
+        # body's stop rule) holds
         tracing.mark("expand", dev)
         # the kernel of ops/expand.py on a CUDA tensor (one launch), its
         # plain operators on the CPU: the E rows' neighbours in slot order,
@@ -276,27 +289,34 @@ def _search_batch(
             d_nb = _score(q_loop, torch.clamp(cand, min=0), loop_vecs,
                           v_sq_loop, metric, valid)
         tracing.mark("merge", dev)
-        beam_d, beam_ids, beam_exp = _beam_merge(
-            beam_d, beam_ids, beam_exp, d_nb, cand, ef, force=merge)
+        beam_d, beam_ids, beam_exp, sel_next, active_next = update(
+            beam_d, beam_ids, beam_exp, d_nb, cand, active)
         if tally is not None:
             tracing.mark("count", dev)
             tally[0].append(active.sum())
             tally[1].append(valid.sum())
-        return beam_d, beam_ids, beam_exp, active
+        # the next body's state: its `active` before and after its stop rule
+        return beam_d, beam_ids, beam_exp, sel_next, active, active_next
 
-    state = (beam_d, beam_ids, beam_exp,
-             torch.ones((b,), dtype=torch.bool, device=dev))
+    # the first body's select (with the default merge, one launch of the
+    # kernel of ops/merge.py with no candidates, which also sorts the seeds)
+    tracing.mark("select", dev)
+    ones = torch.ones((b,), dtype=torch.bool, device=dev)
+    beam_d, beam_ids, beam_exp, sel_ids, active = update(
+        beam_d, beam_ids, beam_exp, None, None, ones)
+    state = (beam_d, beam_ids, beam_exp, sel_ids, ones, active)
     if fixed:
         if tally is not None:
             tracing.mark("count", dev)
-        launched = hop_expand.launches
+        launched = (hop_expand.launches, hop_merge.launches)
         state, hops = _hops_fixed(body, state, max_hops, debug_hops)
         if tally is not None:
             _count_hops(hops, max_hops, b * c, *tally,
-                        hop_expand.launches - launched, dev)
+                        hop_expand.launches - launched[0],
+                        hop_merge.launches - launched[1], dev)
     else:
         hops = 0
-        while hops < max_hops and bool(state[3].any()):
+        while hops < max_hops and bool(state[4].any()):
             state = body(*state)
             hops += 1
     tracing.mark("rerank", dev)

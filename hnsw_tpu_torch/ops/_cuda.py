@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu", "descent.cu",
-           "trace.cu", "expand.cu")
+           "trace.cu", "expand.cu", "merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -97,6 +97,14 @@ SIGNATURES = {
         # C, ef: the dynamic shared memory of a block, 0 where it does not
         # fit
         "hop_expand_shared_bytes": (I, I),
+    },
+    "merge.cu": {
+        # beam_d, beam_ids, beam_exp, cand_d, cand_ids, active, out_d,
+        # out_ids, out_exp, sel, out_active, B, ef, C, E, stream
+        "hop_merge": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+        # ef, C: the dynamic shared memory of a block, 0 where it does not
+        # fit
+        "hop_merge_shared_bytes": (I, I),
     },
 }
 

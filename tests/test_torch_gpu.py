@@ -23,9 +23,10 @@ from hnsw_tpu_torch.models import (FlatIndex, HNSWIndex, IVFHNSWIndex,
                                    build_ivf_hnsw_index,
                                    build_partitioned_hnsw)
 from hnsw_tpu_torch.models.flat import quantize_rows
-from hnsw_tpu_torch.ops import descent, expand, hop, probes, scan
+from hnsw_tpu_torch.ops import descent, expand, hop, merge, probes, scan
 from hnsw_tpu_torch.types import Corpus
 from hnsw_tpu_torch.utils.graphs import CapturedCall, kernel_wrappers
+from test_torch_merge import inputs as merge_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -612,6 +613,132 @@ def test_expand_kernel_refuses_what_it_cannot_take(cuda_device):
         expand.hop_expand(adj0, sel, wide)
 
 
+def _merge_inputs(b, ef, c, e, kind, seed=0):
+    """tests/test_torch_merge.py's inputs (a beam, candidates and active
+    flags of the case `kind`) as CPU tensors."""
+    return tuple(torch.from_numpy(a) for a in merge_cases(b, ef, c, e, kind,
+                                                          seed))
+
+
+# (kind, B, ef, C, E): the cells' bodies (ef 200, C = E x M0 = 128) at B =
+# 1, 100 and 1,024, and the select before the loop (C = 0) there; then the
+# CPU test's cases: ties, -0.0 against 0.0, no valid candidate, multi-entry
+# holes with and without candidates, C = 21 with ef = 203, C = 512, fewer
+# than E eligible slots, every query stopped, best unexpanded == worst; a
+# beam of 1,500 (the prefix in two chunks of 1,024 threads); 1,100
+# candidates; a beam of 8,000 (176 KB of shared memory, past the 48 KB
+# default)
+MERGE_SHAPES = [("mixed", 1, 200, 128, 4), ("mixed", 100, 200, 128, 4),
+                ("mixed", 1024, 200, 128, 4), ("mixed", 1024, 200, 0, 4),
+                ("ties", 1024, 200, 128, 4), ("signed_zero", 32, 64, 32, 4),
+                ("all_big", 100, 200, 128, 4), ("holes", 1024, 200, 0, 4),
+                ("holes", 100, 200, 128, 4), ("mixed", 37, 203, 21, 3),
+                ("mixed", 16, 200, 512, 4), ("few_eligible", 100, 50, 21, 8),
+                ("inactive", 16, 200, 128, 4), ("stop_edge", 16, 40, 16, 4),
+                ("mixed", 5, 1500, 64, 4), ("mixed", 5, 64, 1100, 4),
+                ("holes", 3, 8000, 128, 4)]
+
+
+@pytest.mark.parametrize("kind,b,ef,c,e", MERGE_SHAPES)
+def test_merge_kernel_is_the_plain_version(kind, b, ef, c, e, cuda_device):
+    """hop_merge on the card: the plain version's beam, sel_ids and active
+    flags bit for bit (distances as their bits), one launch a call. Held
+    against the plain version on the CPU, whose torch.sort the CPU tests
+    hold to the contract (-0.0 == 0.0), and, but for -0.0 against 0.0,
+    against the plain version on the card."""
+    arrays = _merge_inputs(b, ef, c, e, kind, seed=b + ef + c)
+    want = merge.hop_merge_plain(*arrays, e)
+    on_card = tuple(t.to(cuda_device) for t in arrays)
+    before = merge.hop_merge.launches
+    got = merge.hop_merge(*on_card, e)
+    torch.cuda.synchronize()
+    assert merge.hop_merge.launches == before + (1 if b else 0)
+    card_plain = merge.hop_merge_plain(*on_card, e)
+    for g, w, p in zip(got, want, card_plain):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            g, w, p = (t.view(torch.int32) for t in (g, w, p))
+        assert torch.equal(g.cpu(), w)
+        if kind != "signed_zero":
+            assert torch.equal(g, p)
+    if kind == "inactive":
+        assert not bool(got[4].any())
+    elif kind != "few_eligible":
+        assert bool(got[4].any()) and bool((got[3] >= 0).any())
+
+
+def test_merge_kernel_refuses_what_it_cannot_take(cuda_device):
+    arrays = [t.to(cuda_device) for t in _merge_inputs(4, 200, 128, 4,
+                                                       "mixed")]
+    bad = (("a CPU / CUDA mix", 3, arrays[3].cpu()),
+           ("int64 ids", 1, arrays[1].long()),
+           ("f64 distances", 0, arrays[0].double()),
+           ("a strided beam", 0, arrays[0][:, ::2]),
+           ("uint8 flags", 2, arrays[2].to(torch.uint8)),
+           ("active of another batch", 5, arrays[5][:3]))
+    for _, i, t in bad:
+        with pytest.raises(ValueError):
+            merge.hop_merge(*arrays[:i], t, *arrays[i + 1:], 4)
+    with pytest.raises(ValueError):                # e < 0
+        merge.hop_merge(*arrays, -1)
+    # a beam of 12,000: 264 KB of shared memory, past a block's 227
+    wide = _merge_inputs(2, 12_000, 128, 4, "mixed")
+    assert merge.shared_bytes(12_000, 128) == 0
+    with pytest.raises(ValueError):
+        merge.hop_merge(*(t.to(cuda_device) for t in wide), 4)
+
+
+def test_merge_kernel_search_is_the_plain_path(cuda_device):
+    """At the Bible bulk shape (B = 1,024, E 4, M0 32, ef 200, a bf16 pack,
+    sampled entries): a search through the kernel and one through the plain
+    operators on the card (the parent's path), both eager with device
+    tracing on, give the same rows, distances and hop count and the same
+    counters over all 62 bodies: bodies needed, queries active after each
+    stop rule, valid slots; the kernel ran once before the loop and once a
+    body."""
+    from hnsw_tpu_torch.utils import tracing
+
+    data = generate_vectors(6000, 128, distribution="embedding",
+                            num_clusters=32, seed=9)
+    built = build_hnsw_index(data[:5000], M=16, device=cuda_device)
+    idx = HNSWIndex(built.corpus, built.graph, entry_sample=2048,
+                    entry_mode="sample", pack_precision="bf16")
+    q = idx.corpus.pad_queries(np.concatenate([data[5000:], data[:24]]))
+    assert q.shape[0] == 1024 and idx.graph.m0 == 32
+    run = idx._search_fn(10, "balanced", None, True)[0]
+    kernel = merge.hop_merge
+
+    def plain(*args):
+        return merge.hop_merge_plain(*args)
+
+    plain.launches = 0
+    outs = []
+    for fn in (kernel, plain):
+        merge.hop_merge = fn
+        before = kernel.launches
+        try:
+            tracing.enable_device(True)
+            tracing.collect()
+            d, r, hops = run(q)
+            got = tracing.collect()
+        finally:
+            tracing.enable_device(False)
+            merge.hop_merge = kernel
+        outs.append((d, r, int(hops), got.counters,
+                     kernel.launches - before))
+    (kd, kr, kh, kc, kl), (pd, pr, ph, pc, pl) = outs
+    max_hops = 200 // 4 + 12
+    assert torch.equal(kr, pr) and torch.equal(kd, pd) and kh == ph
+    assert (kl, pl) == (max_hops + 1, 0)
+    for name in ("hop.bodies_run", "hop.bodies_needed",
+                 "hop.query_bodies_active", "hop.slots_scored",
+                 "hop.slots_valid"):
+        assert kc[name] == pc[name], name
+    assert kc["hop.merge_kernel_bodies"] == max_hops
+    assert pc["hop.merge_kernel_bodies"] == 0
+    assert 0 < kh <= max_hops and bool((kr >= 0).all())
+
+
 def _descent_inputs(d, m, dtype, metric, device, duplicates=False):
     """A random 3-layer upper graph over 2,000 rows (a tenth of its slots
     empty), 300 queries near corpus rows, each walk starting at a random
@@ -696,8 +823,9 @@ def _launches():
 def test_search_is_captured_in_one_cuda_graph(cuda_device):
     """hnsw_search_batch (the entry() twin: hierarchy descent, no pack)
     captured whole in one CUDA graph: capturing counts no launch, each
-    replay adds the launches the graph holds (the descent, and the expand
-    kernel once a body), and two replays with other queries each give the
+    replay adds the launches the graph holds (the descent, the expand
+    kernel once a body, the merge kernel once before the loop and once a
+    body), and two replays with other queries each give the
     rows and distances of their eager runs, the first result untouched by
     the second replay."""
     fn, args = entry()
@@ -709,6 +837,7 @@ def test_search_is_captured_in_one_cuda_graph(cuda_device):
     call = CapturedCall(run, q1)
     max_hops = 64 // 4 + 12
     assert call.launches == [(expand.hop_expand, max_hops),
+                             (merge.hop_merge, max_hops + 1),
                              (descent.greedy_descent, 1)]
     warm = [a - b for a, b in zip(_launches(), before)]  # the eager warm-up
     r1 = call(q1)
@@ -767,10 +896,10 @@ def _small_card_index(cuda_device, **kw):
 
 def test_untraced_capture_launches_what_it_did(cuda_device):
     """Device tracing off, the captured search holds the hand-written
-    kernels it held before the tracer (max_hops hop launches and max_hops
-    expand launches, no mark); on, the same, and the marks: the entry, a
-    count before the loop, five a body (select, expand, score, merge,
-    count), the re-rank and the end."""
+    kernels it held before the tracer (max_hops hop launches, max_hops
+    expand launches and max_hops + 1 merge launches, no mark); on, the
+    same, and the marks: the entry, the select and a count before the loop,
+    four a body (expand, score, merge, count), the re-rank and the end."""
     from hnsw_tpu_torch.utils import tracing
 
     idx, q = _small_card_index(cuda_device)
@@ -779,7 +908,8 @@ def test_untraced_capture_launches_what_it_did(cuda_device):
     idx.search_batch(q, 10, "balanced")
     (call,) = idx._graphs.values()
     assert call.launches == [(hop.hop_score, max_hops),
-                             (expand.hop_expand, max_hops)]
+                             (expand.hop_expand, max_hops),
+                             (merge.hop_merge, max_hops + 1)]
     try:
         tracing.enable_device(True)
         idx.search_batch(q, 10, "balanced")
@@ -790,7 +920,8 @@ def test_untraced_capture_launches_what_it_did(cuda_device):
     assert len(idx._graphs) == 2
     assert traced.launches == [(hop.hop_score, max_hops),
                                (expand.hop_expand, max_hops),
-                               (tracing.stamp, 4 + 5 * max_hops)]
+                               (merge.hop_merge, max_hops + 1),
+                               (tracing.stamp, 5 + 4 * max_hops)]
 
 
 @pytest.mark.parametrize("entry_mode", ["sample", "hierarchy"])
@@ -835,3 +966,4 @@ def test_traced_capture_phases_sum_to_its_replays(entry_mode, cuda_device):
     assert c["hop.slots_scored"] == reps * max_hops * 64 * 4 * idx.graph.m0
     assert 0 < c["hop.slots_valid"] <= c["hop.slots_scored"]
     assert c["hop.expand_kernel_bodies"] == c["hop.bodies_run"]
+    assert c["hop.merge_kernel_bodies"] == c["hop.bodies_run"]

@@ -198,10 +198,12 @@ def test_device_tracing_on_gives_the_same_rows_and_phases_in_order(
     d1, r1, h1 = index.search_batch(q, K, "balanced", debug_hops=True)
     got = tracing.collect()
     assert torch.equal(r0, r1) and torch.equal(d0, d1) and h0 == h1
-    # the entry twice (the run, then the search it calls: one phase), one
-    # select / expand / score / merge a body, the re-rank, the end
-    body = ["select", "expand", "score", "merge"]
-    assert seq == ["entry", "entry"] + body * h1 + ["rerank", tracing.END]
+    # the entry twice (the run, then the search it calls: one phase), the
+    # first body's select, one expand / score / merge (with the next
+    # body's select) a body, the re-rank, the end
+    body = ["expand", "score", "merge"]
+    assert seq == ["entry", "entry", "select"] + body * h1 + [
+        "rerank", tracing.END]
     assert got.runs == 1
     assert all(got.phase_ms[p] > 0 for p in tracing.PHASES[:-1])
     assert got.phase_ms["count"] == 0     # the CPU loop counts nothing
