@@ -1751,14 +1751,14 @@ def large_path(torch, n: int = LARGE_ROWS, refine_rounds: int = 2):
 
     # (d) the hop kernel of this pack, at its shape, on 64 queries and the
     # neighbourhoods of their first four results
-    pack = hnsw._nbr_pack
+    pack = hnsw._shadow.nbr_pack
     int8 = pack.dtype == torch.int8
     name = "hop_score_int8" if int8 else "hop_score"
     fn = hop.hop_score_int8 if int8 else hop.hop_score
     plain = hop.hop_score_int8_plain if int8 else hop.hop_score_plain
     check(fn.launches > 0, f"{n} rows: {name} was not launched")
     served_launches = fn.launches
-    qlp = torch.matmul(q[:64], hnsw._proj).contiguous()
+    qlp = torch.matmul(q[:64], hnsw._shadow.proj).contiguous()
     sel = r[:64, :4].to(torch.int32).contiguous()
     got, want = fn(pack, qlp, sel), plain(pack, qlp, sel)
     torch.cuda.synchronize()
@@ -1783,7 +1783,7 @@ def large_path(torch, n: int = LARGE_ROWS, refine_rounds: int = 2):
     for k in range(HOP_ROTATIONS):
         qk = corpus.pad_queries(data[1024 * k:1024 * (k + 1)])
         _, rk = hnsw.search_batch(qk, K, best)
-        draws.append((torch.matmul(qk, hnsw._proj).contiguous(),
+        draws.append((torch.matmul(qk, hnsw._shadow.proj).contiguous(),
                       rk[:, :4].to(torch.int32).contiguous()))
     outs = 1 if int8 else 2
     t = hop_readings(fn, pack, draws, outs)

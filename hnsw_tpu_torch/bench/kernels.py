@@ -209,17 +209,6 @@ def hop_operands(seed: int = 42, device="cuda", shape: dict = HOP_SHAPE,
     return out
 
 
-def hop_calls(x) -> dict:
-    """kernel name -> a call of the hop kernel on hop_operands' tensors."""
-    from hnsw_tpu_torch.ops import hop
-
-    return {
-        "hop_score": lambda: hop.hop_score(x["pack"], x["queries"], x["sel"]),
-        "hop_score_int8": lambda: hop.hop_score_int8(x["codes"], x["queries"],
-                                                     x["sel"]),
-    }
-
-
 def hop_library(tensor, queries, sel):
     """The hop's yardstick: the blocks gathered by one indexing call and
     scored by one bf16 einsum (no squared norms), as a callable."""

@@ -20,10 +20,9 @@ from hnsw_tpu_torch.models.hnsw.graph import (HNSWGraph, assign_levels,
                                               empty_graph)
 from hnsw_tpu_torch.models.hnsw.search import (_search_batch,
                                                hnsw_search_batch,
-                                               pack_neighbors,
-                                               pack_neighbors_int8,
                                                sample_entries)
-from hnsw_tpu_torch.types import Corpus, Metric
+from hnsw_tpu_torch.models.hnsw.shadow import HopShadow
+from hnsw_tpu_torch.types import Corpus
 from hnsw_tpu_torch.utils import tracing
 from hnsw_tpu_torch.utils.graphs import CapturedCall
 
@@ -31,10 +30,6 @@ from hnsw_tpu_torch.utils.graphs import CapturedCall
 class HNSWIndex(ANNIndex):
     family = "hnsw"
 
-    # neighbourhood-contiguous block packing (see search.pack_neighbors) is
-    # used while the duplicated table fits this budget; "auto" pack precision
-    # takes bf16 while it fits, else int8
-    PACK_BYTES_CAP = 6 << 30
     # captured searches kept on the card, the least recently used dropped
     # first (each holds its own memory pool)
     GRAPH_CACHE = 8
@@ -50,25 +45,15 @@ class HNSWIndex(ANNIndex):
         self.expand = expand
         self.entry_mode = entry_mode
         self.entry_sample = entry_sample
+        # read by HopShadow.prepare at every search, so they may change on a
+        # built index; a used pack is scored by ops/hop.py
         self.precision = precision
-        # a used pack is always scored by ops/hop.py: the CUDA kernels on
-        # the card, their plain versions on a CPU corpus
         self.pack = pack
-        # dtype of the packed-neighbourhood table: "bf16", "int8" (per-row
-        # quantized codes + scales, half the bytes) or "auto"
         self.pack_precision = pack_precision
-        # pack_dim: score hops against the top-pack_dim PCA projection of
-        # the corpus instead of the full-dim bf16 shadow; the final re-rank
-        # widens to rerank_mult*k beam entries at full dimension
         self.pack_dim = pack_dim
         self.rerank_mult = rerank_mult
         self._sample_rows = None
-        self._vec_lp = None
-        self._proj = None
-        self._vsq_lp = None
-        self._nbr_pack = None
-        self._nbr_sq = None
-        self._nbr_scale = None
+        self._shadow = HopShadow()    # what the hop loop scores against
         self._graphs = OrderedDict()
 
     def _entry_rows(self) -> torch.Tensor:
@@ -131,78 +116,23 @@ class HNSWIndex(ANNIndex):
         end in "device_tracing" while the tracer's device marks are on
         (a graph captured with them holds their kernels)."""
         ef = ef if ef is not None else ef_for(mode, k)
-        # "auto": bf16-class loop scoring for cosine; the euclidean norm
-        # formula cancels at bf16, so it keeps f32
-        precision = self.precision if self.precision != "auto" else (
-            "default" if self.corpus.metric == Metric.COSINE else "highest")
+        route = self._shadow.prepare(
+            self.corpus, self.graph.adj0, precision=self.precision,
+            pack=self.pack, pack_precision=self.pack_precision,
+            pack_dim=self.pack_dim)
+        if route.rebuilt:
+            self._drop_graphs()
         vectors, v_sq = self.corpus.vectors, self.corpus.sq_norms
         metric = self.corpus.metric
-        lowdim = (self.pack_dim is not None and precision != "highest"
-                  and self.pack_dim < vectors.shape[1])
-        loop_dim = self.pack_dim if lowdim else vectors.shape[1]
-        if lowdim:
-            if self._proj is None or self._proj.shape[1] != self.pack_dim:
-                # PCA basis: one [D, D] f32 product on the device and a host
-                # eigh (ascending eigenvalues)
-                cov = torch.matmul(vectors.T, vectors).cpu().numpy()
-                w, v = np.linalg.eigh(cov)
-                self._proj = torch.from_numpy(
-                    v[:, ::-1][:, : self.pack_dim].copy()).to(vectors.device)
-                self._vec_lp = None
-            if self._vec_lp is None or tuple(self._vec_lp.shape) != (
-                    vectors.shape[0], self.pack_dim):
-                self._vec_lp = torch.matmul(vectors, self._proj).to(
-                    torch.bfloat16)
-                vf = self._vec_lp.float()
-                self._vsq_lp = torch.sum(vf * vf, dim=-1)
-                self._nbr_pack = None
-                self._drop_graphs()
-        elif self._vec_lp is None or self._vec_lp.shape != vectors.shape:
-            self._vec_lp = vectors.to(torch.bfloat16)
-            self._vsq_lp = None
-            self._nbr_pack = None
-            self._drop_graphs()
-        # the pack is a quantized shadow (bf16 or int8 codes): full-f32
-        # ("highest") scoring keeps exact row gathers
-        pack_bytes = {
-            "bf16": self.graph.n_pad * self.graph.m0 * (loop_dim * 2 + 4),
-            "int8": self.graph.n_pad * self.graph.m0 * (loop_dim + 8),
-        }
-        pp = self.pack_precision
-        if pp == "auto":
-            pp = "bf16" if pack_bytes["bf16"] <= self.PACK_BYTES_CAP \
-                else "int8"
-        use_pack = precision != "highest" and (self.pack is True or (
-            self.pack == "auto"
-            and pack_bytes[pp] <= self.PACK_BYTES_CAP))
-        want_dtype = torch.int8 if pp == "int8" else torch.bfloat16
-        if use_pack and (self._nbr_pack is None
-                         or self._nbr_pack.dtype != want_dtype):
-            src_sq = self._vsq_lp if lowdim else v_sq
-            with tracing.span("hnsw.pack", precision=pp):
-                if pp == "int8":
-                    self._nbr_pack, self._nbr_scale, self._nbr_sq = \
-                        pack_neighbors_int8(self._vec_lp, src_sq,
-                                            self.graph.adj0)
-                else:
-                    self._nbr_pack, self._nbr_sq = pack_neighbors(
-                        self._vec_lp, src_sq, self.graph.adj0)
-                    self._nbr_scale = None
-            self._drop_graphs()
         hierarchy = self.entry_mode != "sample"
         sample_rows = None if hierarchy else self._entry_rows()
-        proj = self._proj if lowdim else None
         kw = dict(
             k=k, ef=ef, expand=self.expand, metric=metric,
-            precision=precision, vectors_lp=self._vec_lp,
-            nbr_pack=self._nbr_pack if use_pack else None,
-            nbr_sq=self._nbr_sq if use_pack else None,
-            nbr_scale=self._nbr_scale if use_pack else None,
-            v_sq_lp=self._vsq_lp if lowdim else None,
             # re-ranking a rerank_mult*k beam prefix exactly recovers the
             # near-ties the bf16 shadow reorders
-            rerank=self.rerank_mult * k, debug_hops=debug_hops)
-        graph = self.graph
+            rerank=self.rerank_mult * k, debug_hops=debug_hops,
+            **route.kwargs)
+        graph, proj = self.graph, route.proj
 
         def run(q):
             tracing.mark("entry", q.device)
@@ -219,10 +149,11 @@ class HNSWIndex(ANNIndex):
                 upper = graph.adj_upper[:0]
             return _search_batch(
                 vectors, v_sq, graph.adj0, upper, entries, q,
-                queries_lp=torch.matmul(q, proj) if lowdim else None, **kw)
+                queries_lp=None if proj is None else torch.matmul(q, proj),
+                **kw)
 
-        key = (k, ef, precision, hierarchy, self.expand, self.rerank_mult,
-               pp if use_pack else None, loop_dim, debug_hops)
+        key = (k, ef, route.precision, hierarchy, self.expand,
+               self.rerank_mult, route.pack, route.loop_dim, debug_hops)
         if tracing.device_tracing():
             key += ("device_tracing",)
         return run, key
@@ -247,13 +178,7 @@ class HNSWIndex(ANNIndex):
         self.corpus = Corpus.from_array(merged, metric=self.corpus.metric,
                                         ids=new_ids, device=self.corpus.device)
         self._sample_rows = None   # the entry sample must cover the new rows
-        self._vec_lp = None        # the bf16 shadow tracks the corpus (shape
-                                   # alone misses adds inside the pad slack)
-        self._nbr_pack = None      # adjacency changed: repack on next search
-        self._nbr_sq = None
-        self._nbr_scale = None
-        self._vsq_lp = None
-        self._proj = None          # the PCA basis tracks the grown corpus
+        self._shadow = HopShadow()  # the old corpus's shadow and pack
         self._drop_graphs()        # they replay on the old corpus and graph
         new_rows = np.arange(old_n, old_n + w, dtype=np.int32)
         new_levels = assign_levels(w, DEFAULTS["ml"],

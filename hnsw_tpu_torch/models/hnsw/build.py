@@ -638,6 +638,7 @@ def insert_wave(graph: HNSWGraph, corpus: Corpus, new_rows: np.ndarray,
     Adjacency is edited on the host in numpy, as in the reference."""
     from hnsw_tpu_torch.models.flat import exact_topk
     from hnsw_tpu_torch.models.hnsw.search import hnsw_search_batch
+    from hnsw_tpu_torch.models.hnsw.shadow import loop_precision
 
     w = len(new_rows)
     if w == 0:
@@ -689,13 +690,11 @@ def insert_wave(graph: HNSWGraph, corpus: Corpus, new_rows: np.ndarray,
             upper = torch.tensor(adj_upper[l:], device=dev) if l < new_max \
                 else torch.zeros((0, n_pad, graph.m), dtype=torch.int32,
                                  device=dev)
-            # euclidean's norm formula cancels at bf16-class precision: the
-            # same auto policy as HNSWIndex.search_batch
-            prec = "default" if metric == Metric.COSINE else "highest"
             _, i_c = hnsw_search_batch(
                 vectors, v_sq, adj_l, upper,
                 torch.full((wp,), graph.entry, dtype=torch.int32, device=dev),
-                q, k=ef_c, ef=ef_c, metric=metric, precision=prec)
+                q, k=ef_c, ef=ef_c, metric=metric,
+                precision=loop_precision(metric))
             cands.append(i_c.cpu().numpy())
         # intra-wave candidates at this level
         wave_members = np.nonzero(at_level)[0]

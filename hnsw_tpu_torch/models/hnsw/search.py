@@ -363,32 +363,12 @@ def pack_neighbors_int8(vectors, v_sq, adj0):
 
 def prepare_hop_fast_path(owner, corpus, adj0, *, expand: int,
                           pack_bytes_cap: int):
-    """Shared wiring of the packed-neighbourhood bf16 hop path for the
-    families that run hnsw_search_batch over disjoint subgraphs of one
-    global adjacency (IVF-HNSW, partitioned HNSW). Caches the bf16 corpus
-    shadow and the neighbour pack on `owner` (attributes _vec_lp, _nbr_pack,
-    _nbr_sq) and returns the keyword arguments for hnsw_search_batch.
-
-    Policy: bf16 loop scoring only for cosine (the euclidean norm formula
-    cancels at bf16), and the pack only while its degree-duplicated bytes
-    fit pack_bytes_cap. A used pack is scored by ops/hop.py (the CUDA
-    kernel on the card), which takes every hop width: the reference's `ef`
-    argument fed only its kernel's eligibility test and is not taken."""
-    precision = "default" if corpus.metric == Metric.COSINE else "highest"
-    if owner._vec_lp is None or owner._vec_lp.shape != corpus.vectors.shape:
-        owner._vec_lp = corpus.vectors.to(torch.bfloat16)
-        owner._nbr_pack = None
-        owner._nbr_sq = None
-    m0 = adj0.shape[1]
-    dim = corpus.vectors.shape[1]
-    use_pack = precision != "highest" and (
-        adj0.shape[0] * m0 * (dim * 2 + 4) <= pack_bytes_cap)
-    if use_pack and owner._nbr_pack is None:
-        owner._nbr_pack, owner._nbr_sq = pack_neighbors(
-            owner._vec_lp, corpus.sq_norms, adj0)
-    return dict(precision=precision, vectors_lp=owner._vec_lp,
-                nbr_pack=owner._nbr_pack if use_pack else None,
-                nbr_sq=owner._nbr_sq if use_pack else None, expand=expand)
+    """hnsw_search_batch's keywords for IVF-HNSW and partitioned HNSW from
+    their shadow.HopShadow `owner`: a bf16 pack while it fits
+    pack_bytes_cap, else none (never int8). No `ef`: the reference's fed
+    only its Pallas kernel's eligibility test."""
+    return dict(owner.prepare(corpus, adj0, pack_precision="bf16",
+                              cap=pack_bytes_cap).kwargs, expand=expand)
 
 
 def sample_entries_grouped(vectors, v_sq, sample_rows, queries, *,

@@ -29,6 +29,7 @@ from hnsw_tpu_torch.models.hnsw.build import build_layers_stacked
 from hnsw_tpu_torch.models.hnsw.search import (hnsw_search_batch,
                                                prepare_hop_fast_path,
                                                sample_entries_grouped)
+from hnsw_tpu_torch.models.hnsw.shadow import PACK_BYTES_CAP, HopShadow
 from hnsw_tpu_torch.ops.kmeans import (balanced_assign, topc_clusters,
                                        train_kmeans)
 from hnsw_tpu_torch.types import Corpus
@@ -36,9 +37,6 @@ from hnsw_tpu_torch.types import Corpus
 
 class IVFHNSWIndex(ANNIndex):
     family = "ivf_hnsw"
-
-    # same budget rule as HNSWIndex for the packed-neighbourhood bf16 table
-    PACK_BYTES_CAP = 6 << 30
 
     # sampled member rows per cluster, seeded beside the medoid: a single
     # entry per probe inside a shared beam under-explores a ~1000-row cell
@@ -60,9 +58,7 @@ class IVFHNSWIndex(ANNIndex):
         # [K, SAMPLES_PER_CLUSTER] evenly spaced member rows (-1 pad); None
         # in states saved before samples existed
         self.samples = samples
-        self._vec_lp = None
-        self._nbr_pack = None
-        self._nbr_sq = None
+        self._shadow = HopShadow()
 
     def search_batch(self, queries, k: int, mode: Mode = Mode.BALANCED,
                      num_probes: Optional[int] = None,
@@ -94,9 +90,9 @@ class IVFHNSWIndex(ANNIndex):
         no_upper = torch.zeros((0,) + tuple(self.adj0.shape),
                                dtype=torch.int32,
                                device=self.adj0.device)[:, :, : self.m]
-        kw = prepare_hop_fast_path(self, self.corpus, self.adj0,
+        kw = prepare_hop_fast_path(self._shadow, self.corpus, self.adj0,
                                    expand=self.expand,
-                                   pack_bytes_cap=self.PACK_BYTES_CAP)
+                                   pack_bytes_cap=PACK_BYTES_CAP)
         return hnsw_search_batch(
             self.corpus.vectors, self.corpus.sq_norms,
             self.adj0, no_upper, entries, q,

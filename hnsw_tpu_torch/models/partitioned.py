@@ -28,14 +28,13 @@ from hnsw_tpu_torch.models.common import as_corpus
 from hnsw_tpu_torch.models.hnsw.search import (hnsw_search_batch,
                                                prepare_hop_fast_path,
                                                sample_entries_grouped)
+from hnsw_tpu_torch.models.hnsw.shadow import PACK_BYTES_CAP, HopShadow
 from hnsw_tpu_torch.types import Corpus, Metric, round_up
 
 
 class PartitionedHNSWIndex(ANNIndex):
     family = "partitioned_hnsw"
 
-    # same budget rule as HNSWIndex for the packed-neighbourhood table
-    PACK_BYTES_CAP = 6 << 30
     ENTRY_SAMPLE_PER_PARTITION = 256
     SEEDS_PER_PARTITION = 4
 
@@ -63,9 +62,7 @@ class PartitionedHNSWIndex(ANNIndex):
         self.expand = 8
         self._adj_g = None
         self._entry_samples = None
-        self._vec_lp = None
-        self._nbr_pack = None
-        self._nbr_sq = None
+        self._shadow = HopShadow()
 
     def _globalized(self):
         """The P disjoint sub-graphs merged into ONE corpus-indexed
@@ -119,9 +116,9 @@ class PartitionedHNSWIndex(ANNIndex):
             self.corpus.vectors, self.corpus.sq_norms,
             self._partition_seed_rows(), q, metric=self.corpus.metric,
             r=self.SEEDS_PER_PARTITION)
-        kw = prepare_hop_fast_path(self, self.corpus, adj_g,
+        kw = prepare_hop_fast_path(self._shadow, self.corpus, adj_g,
                                    expand=self.expand,
-                                   pack_bytes_cap=self.PACK_BYTES_CAP)
+                                   pack_bytes_cap=PACK_BYTES_CAP)
         no_upper = torch.zeros((0, adj_g.shape[0], self.m), dtype=torch.int32,
                                device=adj_g.device)
         return hnsw_search_batch(

@@ -43,10 +43,10 @@ def hop_score_plain(nbr_pack, queries, sel_rows):
     return dots, torch.sum(blocks * blocks, dim=-1)
 
 
-def hop_score_int8_plain(codes, queries, sel_rows):
+def hop_score_int8_plain(nbr_pack, queries, sel_rows):
     """Plain version of hop_score_int8: raw dots [B, E*M0] f32."""
     q = as_bf16_f32(queries.float())
-    return torch.einsum("bd,bcd->bc", q, _blocks(codes, sel_rows))
+    return torch.einsum("bd,bcd->bc", q, _blocks(nbr_pack, sel_rows))
 
 
 def _check(pack, queries, sel_rows, dtype):
@@ -104,19 +104,19 @@ def hop_score(nbr_pack, queries, sel_rows):
     return dots, csq
 
 
-def hop_score_int8(codes, queries, sel_rows):
-    """Fused gather+score over int8 packed codes. Returns RAW dots
-    [B, E*M0] f32 (q . codes, the query rounded to bf16, not quantized);
-    the caller multiplies by the per-packed-row scale."""
-    if codes.device.type == "cpu":
-        return hop_score_int8_plain(codes, queries, sel_rows)
-    _check(codes, queries, sel_rows, torch.int8)
-    n_pad, m0, d = codes.shape
+def hop_score_int8(nbr_pack, queries, sel_rows):
+    """Fused gather+score over int8 packed codes nbr_pack [N_pad, M0, D].
+    Returns RAW dots [B, E*M0] f32 (q . codes, the query rounded to bf16,
+    not quantized); the caller multiplies by the per-packed-row scale."""
+    if nbr_pack.device.type == "cpu":
+        return hop_score_int8_plain(nbr_pack, queries, sel_rows)
+    _check(nbr_pack, queries, sel_rows, torch.int8)
+    n_pad, m0, d = nbr_pack.shape
     b, e = sel_rows.shape
-    dots = codes.new_empty((b, e * m0), dtype=torch.float32)
+    dots = nbr_pack.new_empty((b, e * m0), dtype=torch.float32)
     code = _entry("hop_score_int8")(
-        codes.data_ptr(), queries.data_ptr(), sel_rows.data_ptr(),
-        dots.data_ptr(), b, e, m0, d, n_pad, _cuda.stream_ptr(codes.device))
+        nbr_pack.data_ptr(), queries.data_ptr(), sel_rows.data_ptr(),
+        dots.data_ptr(), b, e, m0, d, n_pad, _cuda.stream_ptr(nbr_pack.device))
     _cuda.check(code, "hop_score_int8")
     hop_score_int8.launches += 1
     return dots

@@ -12,8 +12,8 @@ M=16, one layer, pack_dim=128, 4 probes; 2 refine rounds up to 600,000 rows
 and 3 past), serving at B=1,024 in four modes (recall@10, bar 0.95 at
 accurate; qps_device), and the hop kernel of the pack held against its
 plain version at the pack's shape. Past about 774,000 rows the bf16 pack
-exceeds HNSWIndex.PACK_BYTES_CAP, so the pack is int8 and the kernel is
-hop_score_int8. It prints the same [large] lines as phase 8 of
+exceeds PACK_BYTES_CAP (models/hnsw/shadow.py), so the pack is int8 and the
+kernel is hop_score_int8. It prints the same [large] lines as phase 8 of
 chip_smoke.py, the card's name and power limit first.
 
 --profile builds once more under torch.profiler, one profiler run per build

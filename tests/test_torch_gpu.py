@@ -886,6 +886,41 @@ def test_hnsw_index_replays_its_captured_search(entry_mode, pp, cuda_device):
     assert torch.equal(r, er) and torch.equal(d, ed)
 
 
+@pytest.fixture(scope="module")
+def lowdim_graph():
+    """A 3,000 x 256 graph with upper layers, built once on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    data = generate_vectors(3000, 256, distribution="embedding",
+                            num_clusters=16, seed=5)
+    return data, build_hnsw_index(data, device="cuda").to_state()
+
+
+@pytest.mark.parametrize("entry_mode", ["sample", "hierarchy"])
+@pytest.mark.parametrize("pp", ["bf16", "int8"])
+@pytest.mark.parametrize("pack_dim", [100, 120])
+def test_pack_dim_off_16_searches_on_the_card(pack_dim, pp, entry_mode,
+                                              lowdim_graph):
+    """A pack_dim that is not a multiple of 16: the projection is widened
+    with zero columns to one (the hop kernels and the descent take no
+    other width), and the captured search's rows are the CPU's."""
+    data, state = lowdim_graph
+    kw = dict(pack_dim=pack_dim, pack_precision=pp, entry_mode=entry_mode)
+    gpu, cpu = (HNSWIndex.from_state(Corpus.from_array(data, device=dev),
+                                     state, **kw) for dev in ("cuda", "cpu"))
+    kernel = hop.hop_score_int8 if pp == "int8" else hop.hop_score
+    before = (kernel.launches, descent.greedy_descent.launches)
+    gd, gr = gpu.search_batch(data[:256], 10, "balanced")
+    assert kernel.launches > before[0]
+    assert (descent.greedy_descent.launches > before[1]) == (
+        entry_mode == "hierarchy")
+    assert gpu._shadow.nbr_pack.shape[2] == -(-pack_dim // 16) * 16
+    cd, cr = cpu.search_batch(data[:256], 10, "balanced")
+    same = (gr.cpu() == cr).all(dim=1)
+    assert same.float().mean() >= 0.99
+    np.testing.assert_allclose(gd.cpu()[same], cd[same], atol=1e-5)
+
+
 def _small_card_index(cuda_device, **kw):
     data = generate_vectors(3000, 128, distribution="embedding",
                             num_clusters=16, seed=5)

@@ -98,6 +98,7 @@ def _parity(jd, jr, td, tr, metric, data):
     ("cosine", {}, "balanced"),
     ("cosine", dict(pack_precision="int8"), "balanced"),
     ("cosine", dict(pack_dim=32), "fast"),
+    ("cosine", dict(pack_dim=100), "fast"),
     ("cosine", dict(entry_mode="hierarchy"), "turbo"),
     ("euclidean", {}, "balanced"),
     ("euclidean", dict(entry_mode="hierarchy"), "fast"),
