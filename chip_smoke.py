@@ -8,7 +8,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
   2. build the kernels of hnsw_tpu_torch/csrc with nvcc (sm_90a);
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (hop_score at its three hops: phase 4's, hop
-     width 256, and phase 8's 128-dim pack), and time kernel, plain version
+     width 256, and phase 8's 128-dim pack; hop_gather_score, G1, at an f32
+     euclidean hop body of 1,024 x 128 slots over 60,000 x 896 rows and at
+     the re-rank of 1,024 x 40 over 31,173 x 768, f32 and bf16 rows, each
+     metric), and time kernel, plain version
      and a PyTorch yardstick that the port never calls (the hop kernels
      also on rotated operands past the L2, with the wrapper's host
      microseconds and the bf16 kernel's shared memory per block);
@@ -93,7 +96,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 Phase 3 prints each kernel's ptxas registers and spill bytes on its [kernel]
 lines. Phases 4, 4b, 5, 6, 8 and 9 each zero the launch counts just before
 and read them just after; each must have run its kernels, and all
-thirteen together. A search replayed from a CUDA graph counts the launches the graph
+fifteen of KERNELS together. A search replayed from a CUDA graph counts the launches the graph
 holds (utils/graphs.py).
 Then one
 JSON line of per-kernel records, and as the last line
@@ -122,7 +125,7 @@ N, DIM, SEED = 31173, 768, 42
 KERNELS = ("hop_score", "hop_score_int8", "bucket_topk", "int8_bucket_topk",
            "exact_topk_sweep", "int8_sweep_topk", "int8_packed_topk",
            "mm_only", "mm_only_kmajor", "matmul_only", "matmul_min",
-           "greedy_descent", "hop_expand", "hop_merge")
+           "greedy_descent", "hop_expand", "hop_merge", "hop_gather_score")
 K = 10
 REPS = 5   # timed batches per family on the main path
 ENTRY_SAMPLE = 2048   # HNSW sampled-entry rows for the serving bars
@@ -155,6 +158,8 @@ KERNEL_ENTRIES = {
                        "20descent_block_kernelI13__nv_bfloat16Li0ELi3E"),
     "hop_expand": ("expand.cu", "17hop_expand_kernel"),
     "hop_merge": ("merge.cu", "16hop_merge_kernel"),
+    # f32 rows, euclidean, eight chunks a lane: fmnist's hop body
+    "hop_gather_score": ("gather.cu", "19gather_score_kernelIfLi1ELi8E"),
 }
 
 
@@ -306,6 +311,105 @@ def check_hop_kernels(torch, records):
         del x, tensor, queries, sel
     del pack
     torch.cuda.empty_cache()
+
+
+def check_gather_kernel(torch, records):
+    """G1 against its plain version: at an f32 euclidean hop body (B=1,024,
+    C=128, 60,000 x 896 rows; fmnist60k.bulk's shares: 16.9% of the queries
+    stopped, with no valid slot, and 17.3% of the others' slots not valid,
+    0.687 valid in all; rows clamped to 0 there) and at the re-rank
+    (B=1,024, C=40, 31,173 x 768), each with f32 and bf16 rows and each
+    metric: BIG exactly where not valid, distances within 3e-5 |q| |v| (f32
+    sums of the same products in other orders; euclidean as d^2). Then each
+    shape's f32 euclidean call timed: one call, back to back, as a node of
+    a graph of eight calls on eight draws of rows (as the search's bodies
+    pay), the plain version, and the PyTorch gather + einsum alone, beside
+    the byte bound of the valid rows read once. The records hold the
+    hop body's."""
+    from hnsw_tpu_torch.bench.kernels import burst_ms
+    from hnsw_tpu_torch.ops import gather
+
+    kernel, plain = gather.hop_gather_score, gather.hop_gather_score_plain
+    for label, (b, c, n, d) in (("hop body", (1024, 128, 60000, 896)),
+                                ("re-rank", (1024, 40, 31173, 768))):
+        g = torch.Generator(device="cpu").manual_seed(SEED + d)
+        vectors = torch.nn.functional.normalize(
+            torch.randn(n, d, generator=g), dim=1).cuda()
+        v_sq = (vectors * vectors).sum(1)
+        queries = (vectors[torch.randint(0, n, (b,), generator=g).cuda()]
+                   + 0.05 * torch.randn(b, d, generator=g).cuda())
+        q_sq = (queries * queries).sum(1, keepdim=True)
+        draws = []
+        for _ in range(8):
+            rows = torch.randint(0, n, (b, c), generator=g, dtype=torch.int32)
+            valid = torch.rand(b, c, generator=g) >= 0.173
+            valid[torch.rand(b, generator=g) < 0.169] = False
+            draws.append((torch.where(valid, rows, 0).cuda(), valid.cuda()))
+        rows, valid = draws[0]
+        c_sq = v_sq[rows.long()]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            vecs = vectors.to(dtype)
+            tol = 3e-5 * torch.sqrt(q_sq * c_sq) * (
+                1.01 if dtype == torch.bfloat16 else 1.0)
+            for metric in METRIC_CODES:
+                got = kernel(queries, rows, vecs, v_sq, metric, valid, q_sq)
+                want = plain(queries, rows, vecs, v_sq, metric, valid, q_sq)
+                torch.cuda.synchronize()
+                check(torch.equal(got == 1e30, ~valid),
+                      f"hop_gather_score ({label}, {dtype}, {metric}): BIG "
+                      "not exactly where not valid")
+                gv, wv = got[valid].double(), want[valid].double()
+                t = tol[valid].double()
+                if metric == "euclidean":
+                    err = (gv * gv - wv * wv).abs()
+                    bar = 2 * t + 1e-6 * (q_sq + c_sq)[valid].double()
+                elif metric == "cosine":
+                    err = (gv - wv).abs()
+                    bar = t / torch.sqrt((q_sq * c_sq)[valid].double()) + 1e-6
+                else:
+                    err, bar = (gv - wv).abs(), t + 1e-6
+                check(bool((err <= bar).all()),
+                      f"hop_gather_score ({label}, {dtype}, {metric}) "
+                      f"disagrees with its plain version: "
+                      f"{float((err - bar).max())} past its bar")
+                errs[f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_"
+                     f"{metric}"] = float((gv - wv).abs().max())
+                del got, want
+        launches = kernel.launches
+        args = (queries, rows, vectors, v_sq, "euclidean", valid, q_sq)
+        ms = time_ms(lambda: kernel(*args))
+        b2b_ms = burst_ms(lambda: kernel(*args))
+        node_ms = graph_ms(torch, lambda: [
+            kernel(queries, r, vectors, v_sq, "euclidean", v, q_sq)
+            for r, v in draws], len(draws))
+        plain_ms = time_ms(lambda: plain(*args), reps=5)
+        library_ms = time_ms(lambda: torch.einsum(
+            "bd,bcd->bc", queries, vectors[rows]), reps=5)
+        kernel.launches = launches
+        kept = int(valid.sum())
+        # the valid rows and their norms read once; ids and flags read, the
+        # queries and their norms read, the distances written
+        nbytes = kept * (d * 4 + 4) + b * c * (4 + 1 + 4) + b * (d * 4 + 4)
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        say("kernel", name="hop_gather_score", shape=f"({label}) B={b},C={c},"
+            f"D={d},N={n}", valid_share=kept / (b * c),
+            max_abs_err=json.dumps(errs), tol="3e-5*|q||v| (d^2: twice)",
+            kernel_ms=ms, back_to_back_ms=b2b_ms, graph_node_ms=node_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+            bound_ms=bytes_ms, bound_by="bytes",
+            bytes_per_s_node=nbytes / (node_ms * 1e-3),
+            shared_memory_bytes=gather.shared_bytes(d, 4),
+            **ptxas_fields("hop_gather_score"))
+        if label == "hop body":
+            records["hop_gather_score"] = dict(
+                name="hop_gather_score", route="cuda",
+                source="hnsw_tpu_torch/csrc/gather.cu",
+                replaces="hnsw_tpu/models/hnsw/search.py:109-120, 356",
+                max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                bound_ms=bytes_ms, bound_by="bytes", library_ms=library_ms)
+        del vectors, v_sq, queries, draws, rows, valid, args
+        torch.cuda.empty_cache()
 
 
 def check_scan_kernels(torch, data, records):
@@ -2143,6 +2247,7 @@ def main() -> int:
                             num_clusters=64, seed=SEED)
     records = {}
     check_hop_kernels(torch, records)
+    check_gather_kernel(torch, records)
     check_scan_kernels(torch, data, records)
     check_sweep_kernels(torch, data, records)
     check_packed_kernel(torch, data, records)

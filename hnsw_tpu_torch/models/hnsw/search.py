@@ -23,7 +23,10 @@ exit, a host check of ``any(active)`` per step.
 With a neighbour pack, each hop's scoring is ``ops/hop.py``: on the card the
 hand-written kernels ``hop_score`` (bf16 pack) and ``hop_score_int8`` (int8
 codes). Scores inside the loop use the bf16 shadow; the final top-k is
-re-scored in f32, so reported distances are exact.
+re-scored in f32, so reported distances are exact. Every score that reads
+rows (the hop without a pack, the seeds, the first entry, the re-rank) is
+``ops/gather.py``: on the card one launch of its kernel, which reads only
+the valid slots' rows.
 
 A body's select reads only the beam that the previous body's merge left,
 so the default merge and the next body's select are one step,
@@ -120,22 +123,24 @@ def _hops_fixed(body, state, max_hops: int, count: bool):
 
 
 def _count_hops(hops, max_hops: int, slots: int, active, valid,
-                expanded: int, merged: int, dev):
+                expanded: int, scored: int, merged: int, dev):
     """The card's loop's useful work, into the tracer's counters: the bodies
     run, those needed (the trip count `hops`), each body's queries still
     active after its stop rule (`active`, a device scalar a body), the
     slots scored (`slots` a body: B x E x M0), those left valid after the
     dedupe and the in-beam test (`valid`, a device scalar a body), the
-    bodies whose expand launched the kernel of ops/expand.py (`expanded`)
-    and those whose merge and next select launched the kernel of
-    ops/merge.py (`merged`), each its launches counted while the loop
-    ran."""
+    bodies whose expand launched the kernel of ops/expand.py (`expanded`),
+    those whose score launched the kernel of ops/gather.py (`scored`: the
+    bodies with no pack) and those whose merge and next select launched the
+    kernel of ops/merge.py (`merged`), each its launches counted while the
+    loop ran."""
     tracing.count("hop.bodies_run", max_hops, dev)
     tracing.count("hop.bodies_needed", hops)
     tracing.count("hop.query_bodies_active", torch.stack(active).sum())
     tracing.count("hop.slots_scored", max_hops * slots, dev)
     tracing.count("hop.slots_valid", torch.stack(valid).sum())
     tracing.count("hop.expand_kernel_bodies", expanded, dev)
+    tracing.count("hop.score_kernel_bodies", scored, dev)
     tracing.count("hop.merge_kernel_bodies", merged, dev)
 
 
@@ -182,6 +187,7 @@ def _search_batch(
     hop count, an int on the CPU and a device scalar on the card (None there
     unless debug_hops), which a captured graph returns without a sync."""
     from hnsw_tpu_torch.ops.expand import hop_expand
+    from hnsw_tpu_torch.ops.gather import hop_gather_score
     from hnsw_tpu_torch.ops.hop import hop_score, hop_score_int8
     from hnsw_tpu_torch.ops.merge import hop_merge
 
@@ -215,7 +221,7 @@ def _search_batch(
     if multi_entry:
         seeds = entries[:, :ef]                             # [B, P]
         d_seed = _score(q_loop, torch.clamp(seeds, min=0), loop_vecs,
-                        v_sq_loop, metric, seeds >= 0)
+                        v_sq_loop, metric, seeds >= 0, q_sq_loop)
         kd, order = torch.sort(d_seed, dim=-1, stable=True)
         kp = torch.gather(seeds, -1, order)
         # duplicate seeds score equal distances, so they land adjacent
@@ -229,7 +235,7 @@ def _search_batch(
         # ---- upper layers: greedy 1-probe descent ----------------------
         cur = torch.broadcast_to(entries, (b,)).clone()
         d0 = _score(q_loop, torch.clamp(cur[:, None], min=0), loop_vecs,
-                    v_sq_loop, metric, (cur >= 0)[:, None])[:, 0]
+                    v_sq_loop, metric, (cur >= 0)[:, None], q_sq_loop)[:, 0]
         # every upper layer in one walk: the kernel of ops/descent.py on a
         # CUDA tensor, its plain batch loop on the CPU
         cur, d0 = greedy_descent(q_loop, q_sq_loop, cur, d0, adj_upper,
@@ -286,8 +292,11 @@ def _search_batch(
             d_nb = torch.where(valid, _dist_bc(dots, q_sq_loop, c_sq, metric),
                                BIG)
         else:
+            # the kernel of ops/gather.py on a CUDA tensor (one launch,
+            # reading only the valid slots' rows), its plain operators on
+            # the CPU
             d_nb = _score(q_loop, torch.clamp(cand, min=0), loop_vecs,
-                          v_sq_loop, metric, valid)
+                          v_sq_loop, metric, valid, q_sq_loop)
         tracing.mark("merge", dev)
         beam_d, beam_ids, beam_exp, sel_next, active_next = update(
             beam_d, beam_ids, beam_exp, d_nb, cand, active)
@@ -308,12 +317,14 @@ def _search_batch(
     if fixed:
         if tally is not None:
             tracing.mark("count", dev)
-        launched = (hop_expand.launches, hop_merge.launches)
+        launched = (hop_expand.launches, hop_gather_score.launches,
+                    hop_merge.launches)
         state, hops = _hops_fixed(body, state, max_hops, debug_hops)
         if tally is not None:
             _count_hops(hops, max_hops, b * c, *tally,
                         hop_expand.launches - launched[0],
-                        hop_merge.launches - launched[1], dev)
+                        hop_gather_score.launches - launched[1],
+                        hop_merge.launches - launched[2], dev)
     else:
         hops = 0
         while hops < max_hops and bool(state[4].any()):

@@ -1,6 +1,6 @@
 """Compute ops: distance scoring, top-k selection and merge, k-means, the
 sort network, and the wrappers of the hand-written CUDA kernels (hop,
-expand, merge, descent, scan, probes). Exports what
+expand, merge, gather, descent, scan, probes). Exports what
 ``hnsw_tpu/ops/__init__.py`` exports."""
 
 from hnsw_tpu_torch.ops.distance import (

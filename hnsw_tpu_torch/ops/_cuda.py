@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("hop.cu", "scan.cu", "sweep.cu", "probes.cu", "descent.cu",
-           "trace.cu", "expand.cu", "merge.cu")
+           "trace.cu", "expand.cu", "merge.cu", "gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -105,6 +105,15 @@ SIGNATURES = {
         # ef, C: the dynamic shared memory of a block, 0 where it does not
         # fit
         "hop_merge_shared_bytes": (I, I),
+    },
+    "gather.cu": {
+        # queries, q_sq, rows, rows64, vectors, v_sq, valid, out, B, C,
+        # N_pad, D, metric, stream
+        "hop_gather_score_f32": (P, P, P, I, P, P, P, P, I, I, I, I, I, P),
+        "hop_gather_score_bf16": (P, P, P, I, P, P, P, P, I, I, I, I, I, P),
+        # D, value bytes: the dynamic shared memory of a block, 0 where the
+        # kernel cannot take that width
+        "hop_gather_score_shared_bytes": (I, I),
     },
 }
 

@@ -81,14 +81,11 @@ def shadow_score(queries, rows, vectors, v_sq, metric: Metric, valid,
     their own dtype: with a bf16 shadow the query is rounded to bf16 too and
     the products are f32 (exact), as the reference's bf16 einsum with an f32
     result. q_sq [B, 1] defaults to the unrounded queries' squared norms.
-    Returns [B, C] distances, BIG where not valid."""
-    cand = vectors[rows]                                    # [B, C, D]
-    qc = queries.to(cand.dtype).float()
-    dots = torch.einsum("bd,bcd->bc", qc, cand.float())
-    if q_sq is None:
-        q_sq = torch.sum(queries.float() ** 2, dim=-1, keepdim=True)
-    d = _dist_bc(dots, q_sq, v_sq[rows], metric)
-    return torch.where(valid, d, BIG)
+    Returns [B, C] distances, BIG where not valid. ops/gather.py: on CUDA
+    tensors one launch of its kernel, which reads only the valid rows; on
+    CPU tensors the gather, einsum and mask."""
+    from hnsw_tpu_torch.ops.gather import hop_gather_score
+    return hop_gather_score(queries, rows, vectors, v_sq, metric, valid, q_sq)
 
 
 def _dist_bc(dots, q_sq, c_sq, metric):

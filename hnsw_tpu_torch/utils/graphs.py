@@ -27,13 +27,14 @@ from hnsw_tpu_torch.utils import tracing
 
 def kernel_wrappers():
     """Every wrapper of a hand-written kernel, each with its `launches`."""
-    from hnsw_tpu_torch.ops import descent, expand, hop, merge, probes, scan
+    from hnsw_tpu_torch.ops import (descent, expand, gather, hop, merge,
+                                    probes, scan)
     return (hop.hop_score, hop.hop_score_int8, expand.hop_expand,
-            merge.hop_merge, descent.greedy_descent, scan.bucket_topk,
-            scan.int8_bucket_topk, scan.exact_topk_sweep, scan.int8_sweep_topk,
-            scan.int8_packed_topk, probes.mm_only, probes.mm_only_nt,
-            probes.mm_only_kmajor, probes.matmul_only, probes.matmul_min,
-            tracing.stamp)
+            merge.hop_merge, gather.hop_gather_score, descent.greedy_descent,
+            scan.bucket_topk, scan.int8_bucket_topk, scan.exact_topk_sweep,
+            scan.int8_sweep_topk, scan.int8_packed_topk, probes.mm_only,
+            probes.mm_only_nt, probes.mm_only_kmajor, probes.matmul_only,
+            probes.matmul_min, tracing.stamp)
 
 
 def _clone(out):

@@ -23,7 +23,8 @@ from hnsw_tpu_torch.models import (FlatIndex, HNSWIndex, IVFHNSWIndex,
                                    build_ivf_hnsw_index,
                                    build_partitioned_hnsw)
 from hnsw_tpu_torch.models.flat import quantize_rows
-from hnsw_tpu_torch.ops import descent, expand, hop, merge, probes, scan
+from hnsw_tpu_torch.ops import (descent, expand, gather, hop, merge, probes,
+                                scan)
 from hnsw_tpu_torch.types import Corpus
 from hnsw_tpu_torch.utils.graphs import CapturedCall, kernel_wrappers
 from test_torch_merge import inputs as merge_cases
@@ -739,6 +740,169 @@ def test_merge_kernel_search_is_the_plain_path(cuda_device):
     assert 0 < kh <= max_hops and bool((kr >= 0).all())
 
 
+def _gather_inputs(b, c, n, d, dtype, device, seed=0):
+    """Unit-norm rows (fmnist's generator) and queries near rows, so
+    euclidean distances are small beside the norms; 31% of the slots not
+    valid, and a sixth of the queries with none (stopped queries); rows
+    clamped to 0 where not valid; norms of the f32 rows, as the search's."""
+    g = torch.Generator().manual_seed(seed)
+    vectors = torch.nn.functional.normalize(torch.randn(n, d, generator=g),
+                                            dim=1)
+    queries = vectors[torch.randint(0, n, (b,), generator=g)] + \
+        0.05 * torch.randn(b, d, generator=g)
+    rows = torch.randint(0, n, (b, c), generator=g, dtype=torch.int32)
+    valid = torch.rand(b, c, generator=g) >= 0.31
+    valid[torch.rand(b, generator=g) < 1 / 6] = False
+    rows = torch.where(valid, rows, 0)
+    v_sq = (vectors * vectors).sum(1)
+    return tuple(t.to(device) for t in (queries, rows, vectors.to(dtype),
+                                        v_sq, valid))
+
+
+# (B, C, N, D): fmnist's hop body (1,024 queries, E 4 x M0 32 slots, 60,000
+# rows of 896 f32 after the corpus's padding); Bible's re-rank (rerank_mult
+# 4 x k 10 over 31,173 x 768); the first entry (C = 1); C = 300, past a
+# block's 256 slots (two compaction rounds), at pack_dim 112's width; D =
+# 4,096 (several passes a lane) and 16,384 (64 KB of f32 query, past the
+# 48 KB default of shared memory)
+GATHER_SHAPES = [(1024, 128, 60000, 896), (1024, 40, 31173, 768),
+                 (100, 1, 500, 768), (37, 300, 2000, 112),
+                 (5, 21, 300, 4096), (3, 8, 50, 16384)]
+
+
+@pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,n,d", GATHER_SHAPES)
+def test_gather_kernel_matches_plain_version(b, c, n, d, dtype, metric,
+                                             cuda_device):
+    """hop_gather_score on the card against its plain version on the card
+    (the gather, cuBLAS's f32 product and the mask), one launch a call, with
+    int32 and int64 rows. Both sum the same f32 products (bf16 rows: the
+    query rounded to bf16, products exact) in other orders, so a dot may
+    move by about sqrt(D) x 2^-24 of the sum of |products|, at most
+    |q| |v| (Cauchy-Schwarz); 3e-5 |q| |v| holds 4 x sqrt(16,384) x 2^-24.
+    Distances: that over |q| |v| for cosine, twice it in d^2 for euclidean
+    (whose sqrt loses digits to cancellation, so d^2 is compared), plus the
+    epilogue's rounding. BIG exactly where not valid, and nowhere else."""
+    queries, rows, vectors, v_sq, valid = _gather_inputs(
+        b, c, n, d, dtype, cuda_device, seed=b + c + d)
+    q_sq = (queries * queries).sum(1, keepdim=True)
+    want = gather.hop_gather_score_plain(queries, rows, vectors, v_sq, metric,
+                                         valid, q_sq)
+    c_sq = v_sq[rows.long()]
+    tol = 3e-5 * torch.sqrt(q_sq * c_sq) * (1.01 if dtype == torch.bfloat16
+                                            else 1.0)
+    for r in (rows, rows.long()):
+        before = gather.hop_gather_score.launches
+        got = gather.hop_gather_score(queries, r, vectors, v_sq, metric,
+                                      valid, q_sq)
+        torch.cuda.synchronize()
+        assert gather.hop_gather_score.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == (b, c)
+        assert torch.equal(got == 1e30, ~valid)
+        assert torch.equal(got[~valid], want[~valid])
+        g, w = got[valid].double(), want[valid].double()
+        t, qc = tol[valid].double(), (q_sq + c_sq)[valid].double()
+        if metric == "euclidean":
+            err, bar = (g * g - w * w).abs(), 2 * t + 1e-6 * qc
+        elif metric == "cosine":
+            err = (g - w).abs()
+            bar = t / torch.sqrt(torch.clamp((q_sq * c_sq)[valid].double(),
+                                             min=1e-12)) + 1e-6
+        else:
+            err, bar = (g - w).abs(), t + 1e-6
+        assert bool((err <= bar).all()), float((err - bar).max())
+
+
+def test_gather_kernel_allocates_no_candidate_tensor(cuda_device):
+    """One hop body's score at fmnist's shape (B 1,024, C 128, D 896, the
+    queries' norms given, as the loop gives them): the peak of allocated
+    memory is the [B, C] output, under a hundredth of the B x C x D x 4
+    bytes that the plain version's gather allocates (which the same
+    measurement shows)."""
+    b, c, n, d = 1024, 128, 60000, 896
+    queries, rows, vectors, v_sq, valid = _gather_inputs(
+        b, c, n, d, torch.float32, cuda_device)
+    q_sq = (queries * queries).sum(1, keepdim=True)
+    peaks = []
+    for fn in (gather.hop_gather_score, gather.hop_gather_score_plain):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(queries, rows, vectors, v_sq, "euclidean", valid, q_sq)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del out
+    assert peaks[0] < b * c * d * 4 / 100
+    assert peaks[1] >= b * c * d * 4
+
+
+def test_gather_kernel_refuses_what_it_cannot_take(cuda_device):
+    queries, rows, vectors, v_sq, valid = _gather_inputs(
+        4, 8, 300, 128, torch.float32, cuda_device)
+    q_sq = (queries * queries).sum(1, keepdim=True)
+    good = [queries, rows, vectors, v_sq, valid, q_sq]
+    # rows of 110 f32 values: not whole 16-byte chunks
+    narrow = {0: queries[:, :110].contiguous(),
+              2: torch.zeros((300, 110), device=cuda_device)}
+    bad = (("a CPU / CUDA mix", {1: rows.cpu()}),
+           ("f64 queries", {0: queries.double()}),
+           ("f16 rows", {2: vectors.half()}),
+           ("int16 ids", {1: rows.short()}),
+           ("uint8 flags", {4: valid.to(torch.uint8)}),
+           ("flags of another shape", {4: valid[:, :3]}),
+           ("rows of another width", {2: vectors[:, :64].contiguous()}),
+           ("strided ids", {1: rows[:, ::2]}),
+           ("norms of another batch", {5: q_sq[:3]}),
+           ("rows of 110 f32", narrow))
+    for what, swap in bad:
+        args = [swap.get(i, t) for i, t in enumerate(good)]
+        with pytest.raises(ValueError):
+            gather.hop_gather_score(*args[:4], "cosine", *args[4:])
+    # a query of 60,000 f32 (240 KB): past a block's shared memory
+    assert gather.shared_bytes(60_000, 4) == 0
+    assert gather.shared_bytes(896, 4) > 0
+
+
+def test_gather_kernel_euclidean_search_is_the_plain_path(cuda_device):
+    """An f32 euclidean search (no shadow, no pack, as fmnist's) at B =
+    1,024: replayed from its captured CUDA graph, whose every body's score
+    and the first entry's are the kernel, against the eager search with the
+    plain operators on the card (the parent's path). The two differ only in
+    the order of f32 sums, so rows are the same but where neighbours tie
+    within that rounding: the distance lists agree slot by slot within
+    1e-5, rows are identical for >= 99% of queries, and recall@10 against
+    the exact flat index is the same within 1e-3."""
+    data = generate_vectors(7024, 256, distribution="embedding",
+                            num_clusters=32, seed=11)
+    built = build_hnsw_index(data[:6000], M=16, metric="euclidean",
+                             device=cuda_device)
+    idx = HNSWIndex(built.corpus, built.graph, entry_mode="sample")
+    q = idx.corpus.pad_queries(data[6000:])
+    assert q.shape[0] == 1024
+    _, truth = FlatIndex(idx.corpus).search_batch(q, 10)
+    kd, kr = idx.search_batch(q, 10, "balanced")
+    (call,) = idx._graphs.values()
+    max_hops = 200 // 4 + 12
+    assert (gather.hop_gather_score, max_hops + 1) in call.launches
+    kernel = gather.hop_gather_score
+
+    def plain(*args):
+        return gather.hop_gather_score_plain(*args)
+
+    plain.launches = 0
+    gather.hop_gather_score = plain
+    try:
+        pd, pr, _ = idx._search_fn(10, "balanced", None, False)[0](q)
+    finally:
+        gather.hop_gather_score = kernel
+    assert bool((kr >= 0).all()) and bool((pr >= 0).all())
+    assert float((kr == pr).all(dim=1).float().mean()) >= 0.99
+    torch.testing.assert_close(kd, pd, rtol=0, atol=1e-5)
+    assert abs(recall(kr, truth) - recall(pr, truth)) <= 1e-3
+    assert recall(kr, truth) >= 0.9
+
+
 def _descent_inputs(d, m, dtype, metric, device, duplicates=False):
     """A random 3-layer upper graph over 2,000 rows (a tenth of its slots
     empty), 300 queries near corpus rows, each walk starting at a random
@@ -836,8 +1000,11 @@ def test_search_is_captured_in_one_cuda_graph(cuda_device):
     before = _launches()
     call = CapturedCall(run, q1)
     max_hops = 64 // 4 + 12
+    # the gather-score kernel: the first entry, every body (an f32 loop
+    # with no pack) and the re-rank
     assert call.launches == [(expand.hop_expand, max_hops),
                              (merge.hop_merge, max_hops + 1),
+                             (gather.hop_gather_score, max_hops + 2),
                              (descent.greedy_descent, 1)]
     warm = [a - b for a, b in zip(_launches(), before)]  # the eager warm-up
     r1 = call(q1)
@@ -932,9 +1099,10 @@ def _small_card_index(cuda_device, **kw):
 def test_untraced_capture_launches_what_it_did(cuda_device):
     """Device tracing off, the captured search holds the hand-written
     kernels it held before the tracer (max_hops hop launches, max_hops
-    expand launches and max_hops + 1 merge launches, no mark); on, the
-    same, and the marks: the entry, the select and a count before the loop,
-    four a body (expand, score, merge, count), the re-rank and the end."""
+    expand launches, max_hops + 1 merge launches, and two gather-score
+    launches, the first entry's and the re-rank's; no mark); on, the same,
+    and the marks: the entry, the select and a count before the loop, four
+    a body (expand, score, merge, count), the re-rank and the end."""
     from hnsw_tpu_torch.utils import tracing
 
     idx, q = _small_card_index(cuda_device)
@@ -944,7 +1112,8 @@ def test_untraced_capture_launches_what_it_did(cuda_device):
     (call,) = idx._graphs.values()
     assert call.launches == [(hop.hop_score, max_hops),
                              (expand.hop_expand, max_hops),
-                             (merge.hop_merge, max_hops + 1)]
+                             (merge.hop_merge, max_hops + 1),
+                             (gather.hop_gather_score, 2)]
     try:
         tracing.enable_device(True)
         idx.search_batch(q, 10, "balanced")
@@ -956,6 +1125,7 @@ def test_untraced_capture_launches_what_it_did(cuda_device):
     assert traced.launches == [(hop.hop_score, max_hops),
                                (expand.hop_expand, max_hops),
                                (merge.hop_merge, max_hops + 1),
+                               (gather.hop_gather_score, 2),
                                (tracing.stamp, 5 + 4 * max_hops)]
 
 
@@ -1002,3 +1172,5 @@ def test_traced_capture_phases_sum_to_its_replays(entry_mode, cuda_device):
     assert 0 < c["hop.slots_valid"] <= c["hop.slots_scored"]
     assert c["hop.expand_kernel_bodies"] == c["hop.bodies_run"]
     assert c["hop.merge_kernel_bodies"] == c["hop.bodies_run"]
+    # the bf16 pack's kernel scores every body
+    assert c["hop.score_kernel_bodies"] == 0
