@@ -475,9 +475,11 @@ def build_graph(
     pieces the search cannot cross). Records the span
     hnsw.build (attribute rows) and inside it hnsw.build.layers (layer 0's
     dispatch and the upper layers built on the host), .fetch (waiting for
-    the device layers) and .repair (bridge_components)."""
+    the device layers) and .repair (bridge_components); inside .layers, one
+    span hnsw.build.clustered_l<level> (attributes rows and cells) around
+    each layer the bucketed builder builds."""
     from hnsw_tpu_torch.models.hnsw.build_large import (
-        LARGE_N, build_layer_clustered,
+        LARGE_N, build_layer_clustered, cell_count,
     )
 
     def _tick(stage, frac):
@@ -514,13 +516,18 @@ def build_graph(
         adj0 = np.full((n_pad, m0), NONE, np.int32)
         adj_upper = np.full((max_level, n_pad, m), NONE, np.int32)
 
-        def clustered(members, cap, kc):
-            return build_layer_clustered(
-                corpus.vectors, corpus.sq_norms, members, cap=cap, k_cand=kc,
-                metric=metric, seed=seed,
-                n_probe_clusters=large_probe_clusters,
-                refine_rounds=large_refine_rounds, precision=build_precision,
-                spill=True, progress=progress)
+        def clustered(level, members, cap, kc):
+            # the builder returns the layer's adjacency on the host, so the
+            # span holds its device work
+            with tracing.span(f"hnsw.build.clustered_l{level}",
+                              rows=len(members),
+                              cells=cell_count(len(members))):
+                return build_layer_clustered(
+                    corpus.vectors, corpus.sq_norms, members, cap=cap,
+                    k_cand=kc, metric=metric, seed=seed,
+                    n_probe_clusters=large_probe_clusters,
+                    refine_rounds=large_refine_rounds,
+                    precision=build_precision, spill=True, progress=progress)
 
         # layers past LARGE_N build synchronously with the bucketed builder;
         # the others are dispatched here and fetched after the host layers
@@ -530,7 +537,7 @@ def build_graph(
             if n > 1:
                 members0 = np.arange(n, dtype=np.int32)
                 if n > LARGE_N:
-                    adj0[:n] = clustered(members0, m0, k_cand)
+                    adj0[:n] = clustered(0, members0, m0, k_cand)
                 else:
                     pending.append((0, *build_layer_dispatch(
                         corpus.vectors, members0, cap=m0, k_cand=k_cand,
@@ -544,8 +551,8 @@ def build_graph(
                 if len(members) <= 1:
                     continue
                 if len(members) > LARGE_N:
-                    adj_upper[l - 1, members] = clustered(members, m,
-                                                          min(k_cand, 4 * m))
+                    adj_upper[l - 1, members] = clustered(
+                        l, members, m, min(k_cand, 4 * m))
                 elif len(members) > HOST_LAYER_MAX:
                     pending.append((l, *build_layer_dispatch(
                         corpus.vectors, members, cap=m,

@@ -58,6 +58,8 @@ from hnsw_tpu_torch.utils import tracing
 
 # threshold at which build_graph delegates here
 LARGE_N = 150_000
+# rows of a k-means cell
+CLUSTER_SIZE = 4096
 # working-set budgets of the cell pass and of the refinement's gather
 CELL_BUDGET_BYTES = 1 << 30
 REFINE_BUDGET_BYTES = 1 << 30
@@ -90,6 +92,11 @@ def _rows_by_cell(near: np.ndarray, kk: int) -> list:
     bounds = np.searchsorted(flat[order], np.arange(kk + 1))
     rows = order // near.shape[1]
     return [rows[bounds[c]:bounds[c + 1]] for c in range(kk)]
+
+
+def cell_count(ns: int, cluster_size: int = CLUSTER_SIZE) -> int:
+    """The k-means cells of a layer of ns rows."""
+    return max(2, ns // cluster_size)
 
 
 def _rows_within(budget: int, per_row: int) -> int:
@@ -255,7 +262,7 @@ def build_layer_clustered(
     cap: int,
     k_cand: int,
     metric: Metric,
-    cluster_size: int = 4096,
+    cluster_size: int = 4096,  # CLUSTER_SIZE, written as the reference's
     n_probe_clusters: int = 2,
     refine_rounds: int = 1,
     seed: int = 42,
@@ -292,7 +299,7 @@ def build_layer_clustered(
     dev = vectors.device
     ns = len(member_rows)
     member_rows = np.asarray(member_rows, np.int32)
-    kk = max(2, ns // cluster_size)
+    kk = cell_count(ns, cluster_size)
 
     with tracing.span("hnsw.build.large", rows=ns, cells=kk) as large:
         with _stage("hnsw.build.large.kmeans", dev):

@@ -39,8 +39,11 @@ With device tracing on (``utils/tracing.py``) the search marks its phases,
 ``entry`` (the descent or the sampled entry, and the seed), ``select`` (the
 first body's, before the loop), per body ``expand`` (adjacency gather,
 dedupe, in-beam test: on the card one launch of the kernel of
-``ops/expand.py``), ``score`` and ``merge`` (the merge and the next body's
-select), then ``rerank``; the card's loop also counts its useful work in
+``ops/expand.py``), ``score``, on the int8 pack's route ``dequant`` (from
+the return of ``hop_score_int8``: the scale and norm gathers, the product,
+the distance and the mask; ``score`` then holds the clamp and the kernel
+alone), and ``merge`` (the merge and the next body's select), then
+``rerank``; the card's loop also counts its useful work in
 ``count`` phases of its own (``_count_hops``). Off, it launches what it did
 without them.
 """
@@ -285,6 +288,8 @@ def _search_batch(
             if nbr_scale is not None:
                 sel_rows = torch.clamp(sel_ids, min=0)
                 dots = hop_score_int8(nbr_pack, q_kernel, sel_rows)
+                # the scales and norms, the distance and the mask
+                tracing.mark("dequant", dev)
                 dots = dots * nbr_scale[sel_rows].reshape(b, c)
                 c_sq = nbr_sq[sel_rows].reshape(b, c)
             else:

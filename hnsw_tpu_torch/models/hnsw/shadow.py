@@ -54,7 +54,9 @@ class HopShadow:
         needs no shadow and no pack. pack_dim: score hops against the top
         pack_dim PCA axes; pack: "auto" (while it fits `cap`), True or
         False; pack_precision: "bf16", "int8" (per-row quantized codes and
-        scales, half the bytes) or "auto" (bf16 while it fits `cap`)."""
+        scales, half the bytes) or "auto" (bf16 while it fits `cap`).
+        Records the span hnsw.pack (attributes precision and bytes: the
+        codes or rows, the norms and any scales) where it builds a pack."""
         precision = loop_precision(corpus.metric, precision)
         vectors = corpus.vectors
         if precision == "highest":
@@ -75,7 +77,7 @@ class HopShadow:
         if use_pack and (self._pack_of[0] is not adj0
                          or self._pack_of[1] != pp):
             sq = corpus.sq_norms if self.v_sq_lp is None else self.v_sq_lp
-            with tracing.span("hnsw.pack", precision=pp):
+            with tracing.span("hnsw.pack", precision=pp, bytes=nbytes):
                 if pp == "int8":
                     self.nbr_pack, self.nbr_scale, self.nbr_sq = \
                         pack_neighbors_int8(self.vectors_lp, sq, adj0)

@@ -43,9 +43,11 @@ from typing import Dict, List, NamedTuple
 import torch
 
 RING = 1 << 16
-# the phases of a search, in the order a run opens them; "count" holds the
-# counters' kernels, so that the others read clean
-PHASES = ("entry", "select", "expand", "score", "merge", "rerank", "count")
+# the phases of a search, in the order a run opens them; "dequant" opens
+# only on the int8 pack's route; "count" holds the counters' kernels, so
+# that the others read clean
+PHASES = ("entry", "select", "expand", "score", "dequant", "merge", "rerank",
+          "count")
 END = "end"
 # counters a device holds
 COUNTERS = 32

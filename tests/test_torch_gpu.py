@@ -1162,7 +1162,9 @@ def test_traced_capture_phases_sum_to_its_replays(entry_mode, cuda_device):
     assert got.runs == reps
     phases = sum(got.phase_ms.values())
     assert abs(phases - ms) <= 0.03 * ms, (phases, ms, got.phase_ms)
-    assert all(got.phase_ms[p] > 0 for p in tracing.PHASES)
+    assert all(got.phase_ms[p] > 0 for p in tracing.PHASES
+               if p != "dequant")
+    assert got.phase_ms["dequant"] == 0   # the int8 pack's phase alone
     c = got.counters
     max_hops = 200 // 4 + 12
     assert c["hop.bodies_run"] == reps * max_hops
@@ -1174,3 +1176,69 @@ def test_traced_capture_phases_sum_to_its_replays(entry_mode, cuda_device):
     assert c["hop.merge_kernel_bodies"] == c["hop.bodies_run"]
     # the bf16 pack's kernel scores every body
     assert c["hop.score_kernel_bodies"] == 0
+
+
+def test_int8_pack_at_d_pad_128_is_captured_and_replayed(cuda_device,
+                                                         monkeypatch):
+    """glove-100-angular's route at a small size: a 6,000 x 100 cosine
+    index (D_pad 128) whose pack cap lies between the int8 and the bf16
+    pack's bytes, so that "auto" picks int8, searched at B = 1,024 from its
+    captured CUDA graph: max_hops launches of B2 a replay; rows those of the
+    same graph searched on the CPU for >= 99% of queries (B2 and its plain
+    version sum in another order, which can swap near ties), distances
+    within 1e-5 where the rows agree; B2 at the served shape (the pack, the
+    queries, B = 1,024 x E = 4 selected rows with -1s) within 1e-4 of the
+    largest plain dot. With device tracing on, the traced graph's dequant
+    phase reads > 0, and it marks once more a body."""
+    from hnsw_tpu_torch.models.hnsw.shadow import HopShadow
+    from hnsw_tpu_torch.utils import tracing
+
+    data = generate_vectors(7024, 100, distribution="embedding",
+                            num_clusters=32, seed=23)
+    built = build_hnsw_index(data[:6000], M=16, max_M0=32,
+                             device=cuda_device)
+    slots = built.graph.adj0.shape[0] * built.graph.adj0.shape[1]
+    monkeypatch.setitem(HopShadow.prepare.__kwdefaults__, "cap",
+                        slots * (128 + 8 + 128 * 2 + 4) // 2)
+    state = built.to_state()
+    gpu, cpu = (HNSWIndex.from_state(Corpus.from_array(data[:6000],
+                                                       device=dev), state)
+                for dev in ("cuda", "cpu"))
+    q = data[6000:]
+    assert len(q) == 1024
+    kd, kr = gpu.search_batch(q, 10, "balanced")
+    assert gpu._shadow.nbr_pack.dtype == torch.int8
+    assert gpu._shadow.nbr_pack.shape[1:] == (32, 128)
+    (call,) = gpu._graphs.values()
+    max_hops = 200 // 4 + 12
+    assert (hop.hop_score_int8, max_hops) in call.launches
+    before = hop.hop_score_int8.launches
+    kd, kr = gpu.search_batch(q, 10, "balanced")
+    assert hop.hop_score_int8.launches - before == max_hops
+    cd, cr = cpu.search_batch(q, 10, "balanced")
+    assert cpu._shadow.nbr_pack.dtype == torch.int8
+    same = (kr.cpu() == cr).all(dim=1)
+    assert same.float().mean() >= 0.99
+    np.testing.assert_allclose(kd.cpu()[same], cd[same], atol=1e-5)
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    pack = gpu._shadow.nbr_pack
+    sel = torch.randint(-1, pack.shape[0], (1024, 4), generator=g,
+                        dtype=torch.int32).to(cuda_device)
+    qk = gpu.corpus.pad_queries(q).float().contiguous()
+    got = hop.hop_score_int8(pack, qk, sel)
+    want = hop.hop_score_int8_plain(pack, qk, torch.clamp(sel, min=0))
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+    try:
+        tracing.enable_device(True)
+        gpu.search_batch(q, 10, "balanced")
+        tracing.collect()
+        gpu.search_batch(q, 10, "balanced")
+        traced = tracing.collect()
+    finally:
+        tracing.enable_device(False)
+        tracing.collect()
+    assert traced.runs == 1 and traced.phase_ms["dequant"] > 0
+    assert (tracing.stamp, 5 + 5 * max_hops) in \
+        list(gpu._graphs.values())[-1].launches

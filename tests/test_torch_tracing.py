@@ -205,7 +205,9 @@ def test_device_tracing_on_gives_the_same_rows_and_phases_in_order(
     assert seq == ["entry", "entry", "select"] + body * h1 + [
         "rerank", tracing.END]
     assert got.runs == 1
-    assert all(got.phase_ms[p] > 0 for p in tracing.PHASES[:-1])
+    assert all(got.phase_ms[p] > 0 for p in ("entry", "select", "expand",
+                                             "score", "merge", "rerank"))
+    assert got.phase_ms["dequant"] == 0   # the int8 pack's phase alone
     assert got.phase_ms["count"] == 0     # the CPU loop counts nothing
 
 
@@ -291,8 +293,9 @@ STAGES = ("kmeans", "cells", "symmetrize", "refine")
 
 def test_clustered_layer_records_its_stage_spans(fresh, data, monkeypatch):
     """A layer past LARGE_N records hnsw.build.large with the plan's counts
-    inside hnsw.build.layers, and under it the four stages in order, once
-    each, each closing after its wait for the device."""
+    inside hnsw.build.clustered_l0, inside hnsw.build.layers, and under it
+    the four stages in order, once each, each closing after its wait for
+    the device."""
     from hnsw_tpu_torch.models.hnsw import build_large
     monkeypatch.setattr(build_large, "LARGE_N", 1000)
     real_build, real_wait = (build_large.build_layer_clustered,
@@ -314,8 +317,10 @@ def test_clustered_layer_records_its_stage_spans(fresh, data, monkeypatch):
     large = [s for s in spans if s.name == "hnsw.build.large"]
     assert len(large) == 1
     large = large[0]
-    assert large.parent == layers.id and layers.parent == root.id
-    assert large.request == root.id
+    (clustered,) = [s for s in spans
+                    if s.name == "hnsw.build.clustered_l0"]
+    assert large.parent == clustered.id and clustered.parent == layers.id
+    assert layers.parent == root.id and large.request == root.id
     assert large.attrs["rows"] == len(data) and large.attrs["cells"] == 2
     assert set(large.attrs) == {"rows", "cells", "largest_pool", "pool_pad",
                                 "cell_chunk_rows", "refine_chunk_rows",
@@ -329,10 +334,12 @@ def test_clustered_layer_records_its_stage_spans(fresh, data, monkeypatch):
     assert large.start_ns <= stages[0].start_ns
     for a, b in zip(stages, stages[1:]):
         assert a.end_ns <= b.start_ns
-    assert stages[-1].end_ns <= large.end_ns <= layers.end_ns
+    assert stages[-1].end_ns <= large.end_ns <= clustered.end_ns <= \
+        layers.end_ns
     # benchmark/program_trace.py keys a build's spans by their last name
     # part: no two of one build share one
     parts = [s.name.rsplit(".", 1)[-1] for s in spans
              if s.request == root.id and s.parent]
     assert len(parts) == len(set(parts))
-    assert {"layers", "fetch", "repair", "large", *STAGES} == set(parts)
+    assert {"layers", "fetch", "repair", "clustered_l0", "large",
+            *STAGES} == set(parts)
