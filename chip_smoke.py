@@ -139,11 +139,11 @@ LARGE_BUILD = dict(M=16, hierarchy=False, pack_dim=128,
 # the ptxas entry of each kernel: its source and a piece of its mangled name
 # (<length><name> and the template arguments; for hop_score the
 # instantiation of three chunks a lane, which the main path's D = 768 runs,
-# for hop_score_int8 the single-pass one, and for greedy_descent the bf16
-# cosine one of three chunks a lane)
+# for hop_score_int8 that of eight lanes a row, which glove's D = 128 runs,
+# and for greedy_descent the bf16 cosine one of three chunks a lane)
 KERNEL_ENTRIES = {
     "hop_score": ("hop.cu", "20hop_bf16_ring_kernelILi3E"),
-    "hop_score_int8": ("hop.cu", "15hop_int8_kernelILb0E"),
+    "hop_score_int8": ("hop.cu", "15hop_int8_kernelILi8ELi1ELi16EE"),
     "bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb0E"),
     "int8_bucket_topk": ("scan.cu", "24bucket_bank_wgmma_kernelILb1E"),
     "exact_topk_sweep": ("sweep.cu", "18sweep_wgmma_kernelILb0E"),
@@ -166,14 +166,22 @@ KERNEL_ENTRIES = {
 METRIC_CODES = {"cosine": 0, "euclidean": 1, "dot": 2}
 
 
-def ptxas_fields(name: str, metric: str = None) -> dict:
+# hop_score_int8's instantiation at each hop shape it is timed at: <lanes a
+# row, units a lane, bytes a unit>
+HOP_INT8_PIECES = {"a": "15hop_int8_kernelILi32ELi3ELi8EE",
+                   "c": "15hop_int8_kernelILi8ELi1ELi16EE"}
+
+
+def ptxas_fields(name: str, metric: str = None, piece: str = None) -> dict:
     """The kernel's registers and spill bytes from this run's ptxas report
     (the largest over its template instantiations, or, given a metric, of
-    the instantiation of that metric: its second template argument). The
-    wgmma kernels' registers are ptxas's count at 384 threads; setmaxnreg
-    then gives each consumer warpgroup 232."""
+    the instantiation of that metric: its second template argument; given
+    a piece, of the instantiations it names). The wgmma kernels' registers
+    are ptxas's count at 384 threads; setmaxnreg then gives each consumer
+    warpgroup 232."""
     from hnsw_tpu_torch.ops import _cuda
-    src, piece = KERNEL_ENTRIES[name]
+    src, entry = KERNEL_ENTRIES[name]
+    piece = piece or entry
     if metric is not None:
         piece += f"Li{METRIC_CODES[metric]}E"
     found = [v for k, v in _cuda.kernel_resources(
@@ -246,10 +254,11 @@ def check(cond: bool, what: str) -> None:
 def check_hop_kernels(torch, records):
     """B1 at the main path's three hops (bench/kernels.py, HOP_SHAPES: (a)
     phase 4's hop, (b) hop width 256, (c) the 500,000-row 128-dim pack) and
-    B2 at (a): each held against its plain version, then timed as one call
-    and 20 back to back, on one (queries, sel) draw and cycling through
-    HOP_ROTATIONS draws (past the L2), with the wrapper's host microseconds
-    per call. The records hold (a)."""
+    B2 at (a) and at (c), glove's hop (its narrow plan: B2's
+    narrow_launches steps once a call there): each held against its plain
+    version, then timed as one call and 20 back to back, on one (queries,
+    sel) draw and cycling through HOP_ROTATIONS draws (past the L2), with
+    the wrapper's host microseconds per call. The records hold (a)."""
     from hnsw_tpu_torch.bench.kernels import (HOP_ROTATIONS, HOP_SHAPES,
                                               hop_bytes, hop_library,
                                               hop_operands, hop_readings)
@@ -257,7 +266,8 @@ def check_hop_kernels(torch, records):
 
     pack = None
     for name, key in (("hop_score", "a"), ("hop_score_int8", "a"),
-                      ("hop_score", "b"), ("hop_score", "c")):
+                      ("hop_score", "b"), ("hop_score", "c"),
+                      ("hop_score_int8", "c")):
         shape = HOP_SHAPES[key]
         int8 = name == "hop_score_int8"
         if pack is not None and pack.shape != (
@@ -271,9 +281,14 @@ def check_hop_kernels(torch, records):
         fn = hop.hop_score_int8 if int8 else hop.hop_score
         plain = hop.hop_score_int8_plain if int8 else hop.hop_score_plain
         queries, sel = x["queries"], x["sel"]
+        narrow = hop.hop_score_int8.narrow_launches
         got = fn(tensor, queries, sel)
         want = plain(tensor, queries, sel)
         torch.cuda.synchronize()
+        check(hop.hop_score_int8.narrow_launches - narrow
+              == (int8 and shape["d"] <= 256),
+              f"{name} ({key}): narrow_launches stepped "
+              f"{hop.hop_score_int8.narrow_launches - narrow} times")
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         # f32 sums of D products taken in another order: 1e-4 of the largest
@@ -300,7 +315,8 @@ def check_hop_kernels(torch, records):
             host_us=t["host_us"], plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=bms, bound_by=by,
             rotated_bound_ms=t["rotated_bound_ms"],
-            **ptxas_fields(name), **ring)
+            **ptxas_fields(name, piece=HOP_INT8_PIECES[key] if int8
+                           else None), **ring)
         if key == "a":
             records[name] = dict(
                 name=name, route="cuda", source="hnsw_tpu_torch/csrc/hop.cu",

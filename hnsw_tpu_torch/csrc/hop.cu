@@ -64,32 +64,48 @@
 // 64-row tile of queries that share a block, and csq needs every element
 // squared on the CUDA cores anyway.
 //
-// int8 (hop_int8_kernel): bound by the same bytes, but held by its
-// instruction stream when written like the bf16 kernel (76 us of device time
-// at the main path's hop against a byte bound of 29 us on the H100,
-// PERF.md): per 16 bytes each lane re-read 16 query values from shared
-// memory and converted 16 bytes with I2F, which runs at a quarter of the FMA
-// rate; a 768-byte row of 48 such chunks ran every row's second step on half
-// a warp; and each lane had one load in flight. So a lane owns 8-byte units
-// of a row, unit u at bytes [8u, 8u + 8) for u = lane, lane + 32, ... (three
-// at D = 768, every step a full warp reading 256 contiguous bytes), and holds
-// the bf16-rounded query at those positions in registers for every row its
-// warp scores; a warp scores kI8Rows rows at a time with all their loads
-// issued before the first product (one row at a time is 8% slower; two or
-// eight time the same, scripts/hop_int8_ablate.py); and a byte becomes its
-// exact f32 value without I2F: its sign bit flipped (b + 128), byte_perm
-// places it in the low byte of 0x4B000000 (2^23 + b + 128), and one
-// subtraction of 2^23 + 128 leaves b. Rows longer than 768 bytes run in
-// passes of 768 that reload the query slice from L1.
+// int8 (hop_int8_kernel<LANES, NC, UNIT>): bound by the same bytes. Written
+// like the bf16 kernel it was held by its instruction stream (I2F at a
+// quarter of the FMA rate, the query re-read from shared memory for every
+// 16 bytes); sized for the 768-byte row alone (8-byte units, three a lane,
+// four rows a warp, one block a query) it left lanes 16-31 of every warp
+// without a load at the 128-byte row (16.3% of its byte bound in
+// glove1.2m.bulk, PERF.md). Its plan now follows the row width, as B1's
+// lanes do:
+// - Lanes. A row of D codes is cut into units of 16 bytes, or of 8 where
+//   those fill the lanes' slots better (D = 768: 96 units, three a lane,
+//   against 48 chunks in 64 slots; 12-14% faster there,
+//   scripts/hop_int8_ablate.py). LANES lanes share a row (its units
+//   rounded up to a power of two, at most 32), 32 / LANES rows a warp-step,
+//   each lane taking units sub, sub + LANES, ...: at D = 128 eight lanes a
+//   row and four rows a step (every lane busy, 512 contiguous bytes a
+//   step), at D = 768 all 32 lanes on one row. NC units a lane are held in
+//   one pass (at most kI8RegUnits); longer rows run in passes.
+// - Work. A query's E * M0 rows are cut into tasks of kI8Steps warp-steps.
+//   A warp takes the tasks part, part + parts, ... of one query, parts
+//   chosen so that the launch's warps fit the card at once where the batch
+//   allows (four warps a query, two tasks each, at glove's hop), and holds
+//   the bf16-rounded query at its units in registers, loaded once (once a
+//   pass for rows in passes).
+// - Loads before products. A task reads its rows' blocks from sel, then
+//   issues all of its loads before the first product; the products run
+//   with the steps innermost (one independent FMA chain a step).
+// - Exact bytes without I2F: a byte's sign bit flipped (b + 128), byte_perm
+//   places it in the low byte of 0x4B000000 (2^23 + b + 128), and one
+//   subtraction of 2^23 + 128 leaves b.
+// - Reduction. Each row's LANES partial sums are added over its own lanes
+//   by halving exchanges: a lane sends half of the steps it still holds to
+//   its partner and keeps the other half, so that at D = 128 a task's four
+//   steps take 2 + 1 + 1 shuffles, not 3 rounds of 4 (the old plan took a
+//   5-round warp sum a row), and each lane ends with the whole sum of a
+//   step of its own; the task's 16 rows are then stored by distinct lanes,
+//   64 contiguous bytes in one store.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -451,94 +467,220 @@ hop_bf16_ring_kernel(const __nv_bfloat16* __restrict__ pack, const float* __rest
     }
 }
 
-// rows a warp scores at once, and the 8-byte units of a row a lane holds in
-// one pass: 32 lanes x 3 units cover the main path's 768-byte row
-constexpr int kI8Rows = 4;
-constexpr int kI8Units = 3;
+// ---------------------------------------------------------------------------
+// int8: lanes mapped to (row, unit)
+// ---------------------------------------------------------------------------
 
-// acc + the dot of 8 int8 codes with their 8 query values, exactly converted
-__device__ __forceinline__ float dot8_int8(uint2 raw, const float (&q)[8], float acc) {
-    const uint32_t w[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const float v = __fsub_rn(__int_as_float(__byte_perm(w[h], 0x4B000000u, 0x7650 + j)),
-                                      8388736.f);
-            acc = fmaf(q[4 * h + j], v, acc);
-        }
-    return acc;
+constexpr int kI8Threads = 128;
+constexpr int kI8Warps = kI8Threads / 32;
+// the units of a row a lane holds the query for in one pass: 32 lanes x 3
+// units of 16 bytes cover a 1,536-byte row; longer rows run in passes
+constexpr int kI8RegUnits = 3;
+
+// warp-steps a task, all of whose loads are issued before the first product
+// (two or eight read 5-7% slower at glove's hop and at D = 768, in a CUDA
+// graph, scripts/hop_int8_ablate.py)
+constexpr int kI8Steps = 4;
+
+__host__ __device__ constexpr int log2_floor(int x) { return x > 1 ? 1 + log2_floor(x / 2) : 0; }
+
+// lanes that share a row of `units`: a power of two, at most 32
+int i8_lanes(int units) {
+    int lanes = 1;
+    while (lanes < units && lanes < 32) lanes *= 2;
+    return lanes;
 }
 
-// MULTI: rows of more than 32 * kI8Units units, scored in passes that each
-// reload the query slice; shorter rows leave the lanes' surplus units idle.
-template <bool MULTI>
-__global__ void __launch_bounds__(kThreads)
-hop_int8_kernel(const int8_t* __restrict__ codes, const float* __restrict__ queries,
-                const int* __restrict__ sel, float* __restrict__ dots,
-                int E, int M0, int D, int N_pad) {
-    extern __shared__ long long block_row[];   // [E]: first pack row of each selected block
-    const int b = blockIdx.x;
-    for (int e = threadIdx.x; e < E; e += blockDim.x)
-        block_row[e] = clamp_row(sel[(long long)b * E + e], N_pad) * M0;
-    __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int C = E * M0;
-    const int units = D >> 3;
-    const int passes = MULTI ? (units + 32 * kI8Units - 1) / (32 * kI8Units) : 1;
-    const float* qrow = queries + (long long)b * D;
+// One launch's plan (see the note above).
+struct I8Plan {
+    int unit;    // bytes a unit: 16, or 8 where those fill the lanes better
+    int units;   // units of a row, D / unit
+    int lanes;   // lanes that share a row
+    int nc;      // units a lane takes of a row in one pass
+    int passes;  // passes over a row, each with its own query slice
+    int tasks;   // tasks of a query: its warp-steps, kI8Steps at a time
+    int parts;   // warps a query, each taking tasks part, part + parts, ...
+};
 
-    float q[kI8Units][8];
+I8Plan i8_plan(int E, int M0, int D) {
+    // the share of the lanes' unit slots that hold a unit of the row
+    auto fill = [](int units) {
+        const int lanes = i8_lanes(units), per_lane = (units + lanes - 1) / lanes;
+        return (double)units / (lanes * per_lane);
+    };
+    I8Plan p;
+    p.unit = fill(D / 8) > fill(D / 16) ? 8 : 16;
+    p.units = D / p.unit;
+    p.lanes = i8_lanes(p.units);
+    const int per_lane = (p.units + p.lanes - 1) / p.lanes;
+    p.nc = per_lane < kI8RegUnits ? per_lane : kI8RegUnits;
+    p.passes = (per_lane + p.nc - 1) / p.nc;
+    const int rows = 32 / p.lanes;
+    const long long steps = ((long long)E * M0 + rows - 1) / rows;
+    p.tasks = (int)((steps + kI8Steps - 1) / kI8Steps);
+    p.parts = 1;
+    return p;
+}
+
+// a unit of W 32-bit words: one 16- or 8-byte load through the read-only
+// path, leaving L1 to the query and sel (each byte of a block is read once)
+template <int W>
+__device__ __forceinline__ void load_unit(const int8_t* p, uint32_t (&w)[W]) {
+    if constexpr (W == 4) {
+        asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                     : "l"(p));
+    } else {
+        asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+                     : "=r"(w[0]), "=r"(w[1])
+                     : "l"(p));
+    }
+}
+
+// LANES lanes a row, NC units a lane a pass, units of UNIT bytes (the plan's
+// lanes, nc and unit).
+template <int LANES, int NC, int UNIT>
+__global__ void __launch_bounds__(kI8Threads)
+hop_int8_kernel(const int8_t* __restrict__ codes, const float* __restrict__ queries,
+                const int* __restrict__ sel, float* __restrict__ dots, int B, int E,
+                int M0, int D, int N_pad, I8Plan plan) {
+    constexpr int W = UNIT / 4;          // 32-bit words a unit
+    constexpr int R = 32 / LANES;        // rows a warp-step
+    constexpr int S = kI8Steps;          // warp-steps a task
+    // after the reduction a lane holds V whole sums; the DUP lanes that
+    // differ from it in the low bits of sub alone hold the same
+    constexpr int V = S > LANES ? S / LANES : 1;
+    constexpr int DUP = LANES > S ? LANES / S : 1;
+    const int w = blockIdx.x * kI8Warps + (threadIdx.x >> 5);
+    if (w >= B * plan.parts) return;
+    const int b = w / plan.parts, part = w - b * plan.parts;
+    const int lane = threadIdx.x & 31, my_row = lane / LANES, sub = lane & (LANES - 1);
+    const int C = E * M0;
+    const int* srow = sel + (long long)b * E;
+    const float* qrow = queries + (long long)b * D;
+    float* out = dots + (long long)b * C;
+
+    // the bf16-rounded query values of the lane's units of one pass
+    float q[NC][UNIT];
     auto load_slice = [&](int pass) {
 #pragma unroll
-        for (int i = 0; i < kI8Units; ++i) {
-            const int u = (pass * kI8Units + i) * 32 + lane;
-            float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-            if (u < units) {
-                lo = __ldg(reinterpret_cast<const float4*>(qrow + 8 * u));
-                hi = __ldg(reinterpret_cast<const float4*>(qrow + 8 * u + 4));
-            }
-            const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        for (int k = 0; k < NC; ++k) {
+            const int c = (pass * NC + k) * LANES + sub;
+            const float4* src = reinterpret_cast<const float4*>(qrow + c * UNIT);
 #pragma unroll
-            for (int k = 0; k < 8; ++k) q[i][k] = __bfloat162float(__float2bfloat16_rn(v[k]));
+            for (int h = 0; h < W; ++h) {
+                const float4 v = c < plan.units ? __ldg(src + h) : make_float4(0.f, 0.f, 0.f, 0.f);
+                q[k][4 * h] = __bfloat162float(__float2bfloat16_rn(v.x));
+                q[k][4 * h + 1] = __bfloat162float(__float2bfloat16_rn(v.y));
+                q[k][4 * h + 2] = __bfloat162float(__float2bfloat16_rn(v.z));
+                q[k][4 * h + 3] = __bfloat162float(__float2bfloat16_rn(v.w));
+            }
         }
     };
-    if (!MULTI) load_slice(0);
+    if (plan.passes == 1) load_slice(0);
 
-    for (int r0 = warp * kI8Rows; r0 < C; r0 += kWarps * kI8Rows) {
-        const uint2* src[kI8Rows];
+    for (int t = part; t < plan.tasks; t += plan.parts) {
+        // the pack row (block row * M0 + m) of the lane's row in each step:
+        // row r = (t * S + u) * R + my_row of the query's E * M0, in its
+        // block e = r / M0 at m = r % M0 (stepped, one division a task); -1
+        // past the query's rows
+        int r = t * S * R + my_row;
+        int e = r / M0, m = r - e * M0;
+        long long at[S];
 #pragma unroll
-        for (int j = 0; j < kI8Rows; ++j) {
-            const int r = min(r0 + j, C - 1);
-            const int e = r / M0;
-            src[j] = reinterpret_cast<const uint2*>(codes + (block_row[e] + r - e * M0) * D);
+        for (int u = 0; u < S; ++u) {
+            at[u] = r < C ? clamp_row(__ldg(srow + e), N_pad) * M0 + m : -1;
+            r += R;
+            for (m += R; m >= M0; m -= M0) ++e;
         }
-        float acc[kI8Rows];
+        float acc[S];
 #pragma unroll
-        for (int j = 0; j < kI8Rows; ++j) acc[j] = 0.f;
-        for (int pass = 0; pass < passes; ++pass) {
-            if (MULTI) load_slice(pass);
-            uint2 raw[kI8Rows][kI8Units];
+        for (int u = 0; u < S; ++u) acc[u] = 0.f;
+        for (int pass = 0; pass < plan.passes; ++pass) {
+            if (plan.passes > 1) load_slice(pass);
+            // every load of the task first (zero bytes past the row or the
+            // query's rows: 0 after the conversion), then the products
+            uint32_t raw[S][NC][W];
 #pragma unroll
-            for (int j = 0; j < kI8Rows; ++j)
+            for (int u = 0; u < S; ++u)
 #pragma unroll
-                for (int i = 0; i < kI8Units; ++i) {
-                    const int u = (pass * kI8Units + i) * 32 + lane;
-                    raw[j][i] = u < units ? __ldg(src[j] + u) : make_uint2(0u, 0u);
+                for (int k = 0; k < NC; ++k) {
+                    const int c = (pass * NC + k) * LANES + sub;
+                    if (at[u] >= 0 && c < plan.units) {
+                        load_unit<W>(codes + at[u] * D + c * UNIT, raw[u][k]);
+                    } else {
+#pragma unroll
+                        for (int h = 0; h < W; ++h) raw[u][k][h] = 0u;
+                    }
                 }
+            // the steps innermost: S independent FMA chains
 #pragma unroll
-            for (int j = 0; j < kI8Rows; ++j)
+            for (int k = 0; k < NC; ++k)
 #pragma unroll
-                for (int i = 0; i < kI8Units; ++i) acc[j] = dot8_int8(raw[j][i], q[i], acc[j]);
+                for (int h = 0; h < W; ++h)
+#pragma unroll
+                    for (int u = 0; u < S; ++u) {
+                        const uint32_t word = raw[u][k][h] ^ 0x80808080u;
+#pragma unroll
+                        for (int j = 0; j < 4; ++j) {
+                            const float v = __fsub_rn(
+                                __int_as_float(__byte_perm(word, 0x4B000000u, 0x7650 + j)),
+                                8388736.f);
+                            acc[u] = fmaf(q[k][4 * h + j], v, acc[u]);
+                        }
+                    }
         }
+        // halving exchanges over the row's lanes, largest offset first: a
+        // lane whose bit `off` is set keeps the upper half of the steps it
+        // holds and sends the lower half, its partner the reverse; once a
+        // lane holds one step the rounds left add the partners' sums
+        int base = 0;   // the first of the steps the lane holds
 #pragma unroll
-        for (int j = 0; j < kI8Rows; ++j) acc[j] = warp_sum(acc[j]);
-        if (lane == 0) {
+        for (int i = 0; i < log2_floor(LANES); ++i) {
+            const int off = LANES >> (i + 1), half = S >> (i + 1);
+            if (half > 0) {
+                const bool upper = (sub & off) != 0;
 #pragma unroll
-            for (int j = 0; j < kI8Rows; ++j)
-                if (r0 + j < C) dots[(long long)b * C + r0 + j] = acc[j];
+                for (int j = 0; j < half; ++j) {
+                    const float send = upper ? acc[j] : acc[half + j];
+                    const float keep = upper ? acc[half + j] : acc[j];
+                    acc[j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+                }
+                if (upper) base += half;
+            } else {
+                acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
+            }
+        }
+        // each of the task's S * R rows from one lane: a coalesced store
+        if ((sub & (DUP - 1)) == 0) {
+#pragma unroll
+            for (int j = 0; j < V; ++j) {
+                const int row = (t * S + base + j) * R + my_row;
+                if (row < C) out[row] = acc[j];
+            }
         }
     }
+}
+
+using I8Kernel = void (*)(const int8_t*, const float*, const int*, float*, int, int, int, int,
+                          int, I8Plan);
+constexpr int kI8Kernels = 9;
+
+// the instantiation of a plan, and its index in the entry point's caches
+int i8_kernel(const I8Plan& p, I8Kernel* kernel) {
+    switch (p.lanes) {
+        case 1: *kernel = hop_int8_kernel<1, 1, 16>; return 0;
+        case 2: *kernel = hop_int8_kernel<2, 1, 16>; return 1;
+        case 4: *kernel = hop_int8_kernel<4, 1, 16>; return 2;
+        case 8: *kernel = hop_int8_kernel<8, 1, 16>; return 3;
+        case 16: *kernel = hop_int8_kernel<16, 1, 16>; return 4;
+    }
+    // 8-byte units fill the lanes better only where a lane takes three or more
+    if (p.unit == 8) { *kernel = hop_int8_kernel<32, kI8RegUnits, 8>; return 5; }
+    if (p.nc == 1) { *kernel = hop_int8_kernel<32, 1, 16>; return 6; }
+    if (p.nc == 2) { *kernel = hop_int8_kernel<32, 2, 16>; return 7; }
+    *kernel = hop_int8_kernel<32, kI8RegUnits, 16>;
+    return 8;
 }
 
 }  // namespace
@@ -592,11 +734,39 @@ extern "C" int hop_score_bf16(const void* pack, const void* queries, const void*
 extern "C" int hop_score_int8(const void* codes, const void* queries, const void* sel,
                               void* dots, int B, int E, int M0, int D, int N_pad,
                               void* stream) {
-    if (B > 0 && E > 0) {
-        auto kernel = D / 8 > 32 * kI8Units ? hop_int8_kernel<true> : hop_int8_kernel<false>;
-        kernel<<<B, kThreads, E * sizeof(long long), (cudaStream_t)stream>>>(
-            (const int8_t*)codes, (const float*)queries, (const int*)sel, (float*)dots, E, M0,
-            D, N_pad);
+    if (B <= 0 || E <= 0 || M0 <= 0) return (int)cudaGetLastError();
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (D == 0) {  // every sum is empty
+        cudaMemsetAsync(dots, 0, (size_t)B * E * M0 * sizeof(float), st);
+        return (int)cudaGetLastError();
     }
+    I8Plan plan = i8_plan(E, M0, D);
+    I8Kernel kernel;
+    const int ix = i8_kernel(plan, &kernel);
+    // the warps of this instantiation the card holds at once, looked up
+    // once per device
+    int dev = 0;
+    cudaGetDevice(&dev);
+    static int resident[kI8Kernels][64];
+    int warps = dev < 64 ? resident[ix][dev] : 0;
+    if (!warps) {
+        int sms = 0, blocks = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kI8Threads, 0);
+        warps = sms * blocks * kI8Warps > 0 ? sms * blocks * kI8Warps : 1;
+        if (dev < 64) resident[ix][dev] = warps;
+    }
+    // as many warps a query as let the batch's warps fit the card at once,
+    // at most one a task
+    const int fit = warps / B;
+    plan.parts = fit < 1 ? 1 : fit < plan.tasks ? fit : plan.tasks;
+    const long long total = (long long)B * plan.parts;
+    kernel<<<(int)((total + kI8Warps - 1) / kI8Warps), kI8Threads, 0, st>>>(
+        (const int8_t*)codes, (const float*)queries, (const int*)sel, (float*)dots, B, E, M0,
+        D, N_pad, plan);
     return (int)cudaGetLastError();
 }
+
+// lanes that share a row of D int8 codes in hop_score_int8's plan: below 32
+// a warp-step scores several rows (the narrow plan)
+extern "C" int hop_score_int8_lanes(int D) { return D < 16 ? 1 : i8_plan(1, 1, D).lanes; }

@@ -126,7 +126,7 @@ def _hops_fixed(body, state, max_hops: int, count: bool):
 
 
 def _count_hops(hops, max_hops: int, slots: int, active, valid,
-                expanded: int, scored: int, merged: int, dev):
+                expanded: int, scored: int, merged: int, narrow: int, dev):
     """The card's loop's useful work, into the tracer's counters: the bodies
     run, those needed (the trip count `hops`), each body's queries still
     active after its stop rule (`active`, a device scalar a body), the
@@ -134,9 +134,10 @@ def _count_hops(hops, max_hops: int, slots: int, active, valid,
     dedupe and the in-beam test (`valid`, a device scalar a body), the
     bodies whose expand launched the kernel of ops/expand.py (`expanded`),
     those whose score launched the kernel of ops/gather.py (`scored`: the
-    bodies with no pack) and those whose merge and next select launched the
-    kernel of ops/merge.py (`merged`), each its launches counted while the
-    loop ran."""
+    bodies with no pack), those whose merge and next select launched the
+    kernel of ops/merge.py (`merged`) and those whose int8 hop score took the
+    narrow plan of ops/hop.py's kernel (`narrow`), each its launches counted
+    while the loop ran."""
     tracing.count("hop.bodies_run", max_hops, dev)
     tracing.count("hop.bodies_needed", hops)
     tracing.count("hop.query_bodies_active", torch.stack(active).sum())
@@ -145,6 +146,7 @@ def _count_hops(hops, max_hops: int, slots: int, active, valid,
     tracing.count("hop.expand_kernel_bodies", expanded, dev)
     tracing.count("hop.score_kernel_bodies", scored, dev)
     tracing.count("hop.merge_kernel_bodies", merged, dev)
+    tracing.count("hop.score_int8_narrow_bodies", narrow, dev)
 
 
 def hnsw_search_batch(*args, debug_hops: bool = False, **kwargs):
@@ -322,14 +324,15 @@ def _search_batch(
     if fixed:
         if tally is not None:
             tracing.mark("count", dev)
-        launched = (hop_expand.launches, hop_gather_score.launches,
-                    hop_merge.launches)
+            launched = (hop_expand.launches, hop_gather_score.launches,
+                        hop_merge.launches, hop_score_int8.narrow_launches)
         state, hops = _hops_fixed(body, state, max_hops, debug_hops)
         if tally is not None:
             _count_hops(hops, max_hops, b * c, *tally,
                         hop_expand.launches - launched[0],
                         hop_gather_score.launches - launched[1],
-                        hop_merge.launches - launched[2], dev)
+                        hop_merge.launches - launched[2],
+                        hop_score_int8.narrow_launches - launched[3], dev)
     else:
         hops = 0
         while hops < max_hops and bool(state[4].any()):

@@ -46,6 +46,8 @@ SIGNATURES = {
         "hop_score_bf16": (P, P, P, P, P, I, I, I, I, I, P),
         # codes, queries, sel, dots, B, E, M0, D, N_pad, stream
         "hop_score_int8": (P, P, P, P, I, I, I, I, I, P),
+        # D: the lanes that share a row in hop_score_int8's plan
+        "hop_score_int8_lanes": (I,),
     },
     "scan.cu": {
         # vectors, vkey, queries, part_d, part_r, B, N_pad, D, n, metric,

@@ -118,8 +118,22 @@ def hop_score_int8(nbr_pack, queries, sel_rows):
         nbr_pack.data_ptr(), queries.data_ptr(), sel_rows.data_ptr(),
         dots.data_ptr(), b, e, m0, d, n_pad, _cuda.stream_ptr(nbr_pack.device))
     _cuda.check(code, "hop_score_int8")
-    hop_score_int8.launches += 1
+    # counted on the module's name, as the search reads it; a stand-in put
+    # there that counts launches alone (the benchmark's byte counter) keeps
+    # no narrow count
+    counted = hop_score_int8
+    counted.launches += 1
+    if int8_lanes(d) < 32 and hasattr(counted, "narrow_launches"):
+        counted.narrow_launches += 1
     return dots
+
+
+@functools.lru_cache(maxsize=None)
+def int8_lanes(d: int) -> int:
+    """Lanes that share a row of d int8 codes in hop_score_int8's plan, from
+    csrc/hop.cu's own: below 32 (D <= 256) a warp-step scores several rows,
+    the narrow plan."""
+    return _entry("hop_score_int8_lanes")(d)
 
 
 # the bf16 kernel's dynamic shared memory per block: csrc/hop.cu's ring of
@@ -128,6 +142,8 @@ def hop_score_int8(nbr_pack, queries, sel_rows):
 # source)
 RING_SMEM_BYTES = 16 * (12288 + 2 * 8) + 16
 
-# launch counts: incremented where a kernel is launched, nowhere else
+# launch counts: incremented where a kernel is launched, nowhere else;
+# narrow_launches: those of hop_score_int8 that took the narrow plan
 hop_score.launches = 0
 hop_score_int8.launches = 0
+hop_score_int8.narrow_launches = 0

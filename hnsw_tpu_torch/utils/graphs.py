@@ -8,9 +8,10 @@ shapes. Any operator that waits on the host makes the capture raise, and
 the error is left to the caller.
 
 Launch counts. The kernel wrappers count a launch in Python
-(``wrapper.launches``). A call made during capture launches nothing and a
-replay runs no Python, so the capture takes back what its calls counted,
-keeps it as the launches the graph holds, and each replay adds them.
+(``wrapper.launches``; ``hop_score_int8.narrow_launches`` also counts those
+that took its narrow plan). A call made during capture launches nothing and
+a replay runs no Python, so the capture takes back what its calls counted,
+keeps it as the counts the graph holds, and each replay adds them.
 
 Spans. A call records ``hnsw.search.replay`` (the static copies, the replay's
 launch and the launch counts) and ``hnsw.search.clone`` (the outputs'
@@ -23,6 +24,10 @@ from __future__ import annotations
 import torch
 
 from hnsw_tpu_torch.utils import tracing
+
+
+# the counts a kernel wrapper keeps
+COUNTS = ("launches", "narrow_launches")
 
 
 def kernel_wrappers():
@@ -64,18 +69,21 @@ class CapturedCall:
             with torch.cuda.stream(side):
                 fn(*self.static_in)
             torch.cuda.current_stream().wait_stream(side)
-            wrappers = kernel_wrappers()
-            before = [w.launches for w in wrappers]
+            counts = [(w, a) for w in kernel_wrappers() for a in COUNTS
+                      if hasattr(w, a)]
+            before = [getattr(w, a) for w, a in counts]
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.static_out = fn(*self.static_in)
         self.fn = fn
-        # (wrapper, launches the graph holds)
-        self.launches = []
-        for w, n in zip(wrappers, before):
-            if w.launches != n:
-                self.launches.append((w, w.launches - n))
-                w.launches = n
+        # (wrapper, count, what the graph holds of it), and of `launches`
+        # alone (wrapper, launches the graph holds)
+        self.counts = []
+        for (w, a), n in zip(counts, before):
+            if getattr(w, a) != n:
+                self.counts.append((w, a, getattr(w, a) - n))
+                setattr(w, a, n)
+        self.launches = [(w, n) for w, a, n in self.counts if a == "launches"]
 
     def __call__(self, *inputs):
         with tracing.span("hnsw.search.replay"):
@@ -86,7 +94,7 @@ class CapturedCall:
                                      f"{tuple(x.shape)}")
                 static.copy_(x)
             self.graph.replay()
-            for w, n in self.launches:
-                w.launches += n
+            for w, a, n in self.counts:
+                setattr(w, a, getattr(w, a) + n)
         with tracing.span("hnsw.search.clone"):
             return _clone(self.static_out)

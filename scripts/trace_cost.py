@@ -89,7 +89,8 @@ def cell_cost(name: str, seed: int, reps: int, rounds: int):
         needed_body_share=c["hop.bodies_needed"] / c["hop.bodies_run"],
         active_query_share=c["hop.query_bodies_active"]
         / (c["hop.bodies_run"] * mix["batch"]),
-        valid_candidate_share=c["hop.slots_valid"] / c["hop.slots_scored"])
+        valid_candidate_share=c["hop.slots_valid"] / c["hop.slots_scored"],
+        counters=dict(c))
     # the host spans of requests as the benchmark sends them (host rows
     # in, answers waited for), device tracing off
     rows = pool[:mix["batch"]]

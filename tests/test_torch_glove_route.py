@@ -16,7 +16,11 @@ pack:
    dequant phase reads > 0 on the int8 route and 0 on the bf16 and f32
    routes, whose six search phases read > 0;
 4. the build records one hnsw.build.clustered_l<l> span for each clustered
-   level, its rows those of the level draw.
+   level, its rows those of the level draw;
+5. with the card's loop forced and a stand-in int8 kernel that counts its
+   launches and narrow ones, hop.score_int8_narrow_bodies counts every
+   body of the int8 route and none of the bf16 route's, and a stand-in
+   that counts launches alone leaves an untraced search as it was.
 """
 
 import math
@@ -32,6 +36,7 @@ from hnsw_tpu_torch.models.hnsw import build_large
 from hnsw_tpu_torch.models.hnsw import search as hnsw_search
 from hnsw_tpu_torch.models.hnsw.graph import assign_levels
 from hnsw_tpu_torch.models.hnsw.shadow import HopShadow
+from hnsw_tpu_torch.ops import hop
 from hnsw_tpu_torch.utils import tracing
 
 N, NQ, DIM, K = 6000, 256, 100, 10
@@ -135,6 +140,54 @@ def test_dequant_phase_reads_only_on_the_int8_route(route, glove,
         assert got.phase_ms["dequant"] > 0
     else:
         assert got.phase_ms["dequant"] == 0
+
+
+@pytest.mark.parametrize("route", ["int8", "bf16"])
+def test_narrow_counter_counts_the_int8_bodies(route, glove, monkeypatch,
+                                               request):
+    """The card's fixed-length loop, forced on the CPU, with a stand-in for
+    the int8 kernel (the plain version counting a launch and a narrow one,
+    as the wrapper does at D_pad 128): every body of the int8 route counts
+    in hop.score_int8_narrow_bodies, none of the bf16 route's, and the rows
+    are the same. A stand-in that counts launches alone (as the benchmark's
+    byte counter, benchmark/metrics/hop_score_int8_roofline.py) leaves an
+    untraced search as it was."""
+    if route == "int8":
+        request.getfixturevalue("int8_cap")
+    monkeypatch.setattr(hnsw_search, "_runs_fixed_length",
+                        lambda device: True)
+
+    def counting(pack, queries, sel_rows):
+        counting.launches += 1
+        counting.narrow_launches += 1
+        return hop.hop_score_int8_plain(pack, queries, sel_rows)
+    counting.launches = counting.narrow_launches = 0
+    monkeypatch.setattr(hop, "hop_score_int8", counting)
+    idx = _index(glove)
+    q = glove[1][:64]
+    d0, r0 = idx.search_batch(q, K, "balanced")
+    tracing.enable_device(True)
+    try:
+        tracing.collect()
+        d1, r1 = idx.search_batch(q, K, "balanced")
+        got = tracing.collect()
+    finally:
+        tracing.enable_device(False)
+    assert torch.equal(r0, r1) and torch.equal(d0, d1)
+    max_hops = 200 // 4 + 12
+    c = got.counters
+    assert c["hop.bodies_run"] == max_hops
+    assert c["hop.score_int8_narrow_bodies"] == (
+        max_hops if route == "int8" else 0)
+    assert counting.launches == (2 * max_hops if route == "int8" else 0)
+
+    def bytes_only(pack, queries, sel_rows):
+        bytes_only.launches += 1
+        return hop.hop_score_int8_plain(pack, queries, sel_rows)
+    bytes_only.launches = 0
+    monkeypatch.setattr(hop, "hop_score_int8", bytes_only)
+    d2, r2 = idx.search_batch(q, K, "balanced")
+    assert torch.equal(r0, r2) and torch.equal(d0, d2)
 
 
 def test_each_clustered_level_records_its_span(glove):

@@ -490,12 +490,13 @@ def test_int8_bucket_bank_is_the_plain_version_bit_for_bit(b, n_pad, d, n,
                                       (2, 2, 5, 2064), (4, 1, 3, 16)])
 def test_hop_score_int8_shapes(b, e, m0, d, cuda_device):
     """The int8 hop kernel at B = 1, at E * M0 that is not a multiple of the
-    rows a warp scores at once, at D = 16, 128, 768 (the 8-byte units of a
-    row fill 2 lanes, half of one step, three full steps), at D = 1,536 and
-    2,064 (two and three passes of 768 bytes, the last one partly idle),
-    with selected rows -1 (row 0) and >= N_pad (clamped to the last row):
-    within 1e-4 of the largest plain dot (f32 sums of exact products in
-    another order)."""
+    rows a warp scores at once, at D = 16 (one lane a row, 32 rows a
+    warp-step), 128 (eight lanes a row, four rows a step), 768 (every lane
+    on one row, two 16-byte chunks a lane), 1,536 (three chunks a lane) and
+    2,064 (two passes of three chunks a lane, the second partly idle), with
+    selected rows -1 (row 0) and >= N_pad (clamped to the last row): within
+    1e-4 of the largest plain dot (f32 sums of exact products in another
+    order)."""
     g = torch.Generator(device="cpu").manual_seed(11)
     n_pad = 50
     codes = torch.randint(-128, 128, (n_pad, m0, d), generator=g,
@@ -512,6 +513,45 @@ def test_hop_score_int8_shapes(b, e, m0, d, cuda_device):
     want = hop.hop_score_int8_plain(codes, q, torch.clamp(sel, max=n_pad - 1))
     assert got.shape == (b, e * m0)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_hop_score_int8_at_glove_hop(cuda_device):
+    """The int8 hop kernel at glove-100-angular's hop (B 1,024, E 4, M0 32,
+    D 128: the pack's zero tail past 100 dims, and the query's), with
+    selected rows -1 (row 0) and >= N_pad (the last row): two calls give
+    the same bits, the dots lie within 1e-4 of the largest plain dot and
+    element by element within rtol 1e-5, atol 5e-2, and each call takes
+    the narrow plan (narrow_launches steps once); a call at D = 768 does
+    not."""
+    g = torch.Generator(device="cpu").manual_seed(100)
+    n_pad, b, e, m0 = 50_000, 1024, 4, 32
+    codes = torch.randint(-127, 128, (n_pad, m0, 128), generator=g,
+                          dtype=torch.int8)
+    codes[:, :, 100:] = 0
+    q = torch.randn(b, 128, generator=g)
+    q[:, 100:] = 0
+    sel = torch.randint(0, n_pad, (b, e), generator=g, dtype=torch.int32)
+    sel[0, 0] = -1
+    sel[5, 2] = -1
+    sel[-1, -1] = n_pad + 7
+    codes, q, sel = (t.to(cuda_device) for t in (codes, q, sel))
+    before = (hop.hop_score_int8.launches, hop.hop_score_int8.narrow_launches)
+    got = hop.hop_score_int8(codes, q, sel)
+    assert (hop.hop_score_int8.launches,
+            hop.hop_score_int8.narrow_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    again = hop.hop_score_int8(codes, q, sel)
+    assert hop.hop_score_int8.narrow_launches == before[1] + 2
+    assert torch.equal(got, again)
+    want = hop.hop_score_int8_plain(codes, q, torch.clamp(sel, max=n_pad - 1))
+    assert got.shape == (b, e * m0)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=5e-2)
+    wide = torch.zeros((4, m0, 768), dtype=torch.int8, device=cuda_device)
+    hop.hop_score_int8(wide, torch.zeros((2, 768), device=cuda_device),
+                       torch.zeros((2, 1), dtype=torch.int32,
+                                   device=cuda_device))
+    assert hop.hop_score_int8.narrow_launches == before[1] + 2
 
 
 def test_families_on_the_card_match_the_plain_path(cuda_device):

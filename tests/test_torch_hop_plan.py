@@ -15,6 +15,15 @@ the CPU by a small Python model read from the constants of the source.
    window stores.
 4. The sources: chip_smoke.py names the kernel, the wrapper's shared-memory
    figure is the ring's, and the ablation script's pieces are in hop.cu.
+5. The int8 kernel (hop_int8_kernel<LANES, NC, UNIT>): its plan (16- or
+   8-byte units, lanes a row, units a lane a pass, passes, tasks of
+   kI8Steps warp-steps, warps a query), the warps' tasks and lanes, so that
+   every (b, e, m, 16-byte chunk) is read exactly once (both 8-byte halves,
+   where the units are 8 bytes) at D = 16, 128, 768 and 2,064 and every
+   lane has work at D = 128 and 768, and the halving exchanges of its reduction,
+   so that the row a lane stores is the row whose lanes' sums it holds and
+   every row is stored once; chip_smoke.py and the ablation script name its
+   instantiations and pieces.
 """
 
 import importlib.util
@@ -301,3 +310,245 @@ def test_wrapper_check_refuses_with_a_message(case, shown):
     with pytest.raises(ValueError) as info:
         hop._check(pack, q, sel, torch.bfloat16)
     assert shown in str(info.value)
+
+
+# ---------------------------------------------------------------------------
+# 5. the int8 kernel
+# ---------------------------------------------------------------------------
+
+def _int8_constants():
+    code = HOP_CU.read_text()
+    out = {}
+    for name in ("kI8Threads", "kI8RegUnits", "kI8Steps"):
+        m = re.search(rf"constexpr int {name} = (\d+);", code)
+        assert m, f"{name} is not where this test reads it"
+        out[name] = int(m.group(1))
+    assert "p.unit = fill(D / 8) > fill(D / 16) ? 8 : 16;" in code
+    return out
+
+
+K8 = _int8_constants()
+I8_WARPS = K8["kI8Threads"] // 32
+# the card's warps at once, at glove's plan (132 SMs x 8 blocks x 4 warps)
+RESIDENT = 4224
+
+
+def i8_lanes(units):
+    lanes = 1
+    while lanes < units and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def i8_plan(e, m0, d, b=1, resident=RESIDENT):
+    """i8_plan of hop.cu and the entry point's parts: unit, units, lanes,
+    nc, passes, tasks, parts."""
+    def fill(units):
+        lanes = i8_lanes(units)
+        return units / (lanes * -(-units // lanes))
+    unit = 8 if fill(d // 8) > fill(d // 16) else 16
+    units = d // unit
+    lanes = i8_lanes(units)
+    per_lane = -(-units // lanes)
+    nc = min(per_lane, K8["kI8RegUnits"])
+    passes = -(-per_lane // nc)
+    steps = -(-(e * m0) // (32 // lanes))
+    tasks = -(-steps // K8["kI8Steps"])
+    fit = resident // b
+    parts = 1 if fit < 1 else min(fit, tasks)
+    return unit, units, lanes, nc, passes, tasks, parts
+
+
+def i8_reduction(lanes, s):
+    """The halving exchanges of one task, each lane's partial sum of step u
+    written (u, lane): for each lane, its first step `base` and the sums it
+    holds after the rounds, as sets of (u, lane)."""
+    lane = np.arange(32)
+    sub = lane & (lanes - 1)
+    acc = [[{(u, x)} for u in range(s)] for x in range(32)]
+    base = [0] * 32
+    for i in range(int(np.log2(lanes))):
+        off, half = lanes >> (i + 1), s >> (i + 1)
+        new = [list(a) for a in acc]
+        for x in range(32):
+            y = x ^ off
+            if half > 0:
+                upper, y_upper = bool(sub[x] & off), bool(sub[y] & off)
+                for j in range(half):
+                    sent = acc[y][j] if y_upper else acc[y][half + j]
+                    keep = acc[x][half + j] if upper else acc[x][j]
+                    new[x][j] = keep | sent
+                if upper:
+                    base[x] += half
+            else:
+                new[x][0] = acc[x][0] | acc[y][0]
+        acc = new
+    return base, acc
+
+
+def i8_walk(b_count, e_count, m0, d, resident=RESIDENT):
+    """Model the kernel: the read count of the two 8-byte halves of every
+    (b, e, m, 16-byte chunk), the store count of every (b, row), and the
+    lanes that loaded a unit."""
+    unit, units, lanes, nc, passes, tasks, parts = i8_plan(
+        e_count, m0, d, b_count, resident)
+    R, S = 32 // lanes, K8["kI8Steps"]
+    V, DUP = max(1, S // lanes), max(1, lanes // S)
+    C = e_count * m0
+    lane = np.arange(32)
+    my_row, sub = lane // lanes, lane & (lanes - 1)
+    base, held = i8_reduction(lanes, S)
+    # the row a lane stores is the one whose lanes' partial sums it holds
+    for x in range(32):
+        for j in range(V):
+            assert held[x][j] == {(base[x] + j, y) for y in range(32)
+                                  if my_row[y] == my_row[x]}
+    stores = (sub & (DUP - 1)) == 0
+    reads = np.zeros((b_count, e_count, m0, d // 16, 2), np.int64)
+    stored = np.zeros((b_count, C), np.int64)
+    busy = np.zeros(32, bool)
+    blocks = -(-(b_count * parts) // I8_WARPS)
+    for w in range(blocks * I8_WARPS):
+        if w >= b_count * parts:
+            continue
+        b, part = divmod(w, parts)
+        for t in range(part, tasks, parts):
+            # the kernel's stepping of (r, e, m): one division a task
+            r = t * S * R + my_row
+            e, m = r // m0, r % m0
+            for u in range(S):
+                assert ((e * m0 + m) == r).all()
+                for p in range(passes):
+                    for k in range(nc):
+                        c = (p * nc + k) * lanes + sub
+                        ok = (r < C) & (c < units)
+                        # the unit's 8-byte pieces
+                        for h in range(unit // 8):
+                            piece = c * (unit // 8) + h
+                            np.add.at(reads[b], (e[ok], m[ok], piece[ok] // 2,
+                                                 piece[ok] % 2), 1)
+                        busy |= ok
+                r = r + R
+                m = m + R
+                while (m >= m0).any():
+                    e = e + (m >= m0)
+                    m = np.where(m >= m0, m - m0, m)
+            for x in lane[stores]:
+                for j in range(V):
+                    row = (t * S + base[x] + j) * R + my_row[x]
+                    if row < C:
+                        stored[b, row] += 1
+    return reads, stored, busy
+
+
+@pytest.mark.parametrize("b,e,m0,d,resident", [
+    (8, 4, 32, 128, 32), (5, 3, 7, 128, RESIDENT), (3, 4, 32, 768, 12),
+    (2, 3, 7, 768, RESIDENT), (4, 1, 3, 16, RESIDENT), (3, 2, 40, 16, 5),
+    (2, 2, 5, 2064, RESIDENT), (3, 3, 11, 2064, 2), (2, 5, 11, 1536, 7),
+    (6, 2, 9, 256, 1), (3, 2, 9, 32, RESIDENT), (2, 3, 13, 64, 4),
+    (1, 4, 32, 512, RESIDENT), (2, 2, 3, 6160, RESIDENT),
+    (2, 3, 5, 640, 3), (2, 2, 7, 1024, RESIDENT)])
+def test_int8_every_chunk_is_read_once(b, e, m0, d, resident):
+    reads, stored, busy = i8_walk(b, e, m0, d, resident)
+    assert (reads == 1).all()
+    assert (stored == 1).all()
+    if d in (128, 768):
+        assert busy.all()
+
+
+@settings(max_examples=25, deadline=None)
+@given(b=st.integers(1, 6), e=st.integers(1, 5), m0=st.integers(1, 40),
+       d16=st.sampled_from([1, 2, 3, 5, 8, 13, 16, 33, 40, 48, 129, 386]),
+       resident=st.integers(1, 64))
+def test_int8_every_chunk_is_read_once_anywhere(b, e, m0, d16, resident):
+    reads, stored, _ = i8_walk(b, e, m0, 16 * d16, resident)
+    assert (reads == 1).all()
+    assert (stored == 1).all()
+
+
+@pytest.mark.parametrize("d,unit,lanes,rows_a_step,nc,passes", [
+    (16, 16, 1, 32, 1, 1), (128, 16, 8, 4, 1, 1), (768, 8, 32, 1, 3, 1),
+    (1536, 16, 32, 1, 3, 1), (2064, 8, 32, 1, 3, 3)])
+def test_int8_lane_map(d, unit, lanes, rows_a_step, nc, passes):
+    """Bytes a unit, lanes a row, rows a warp-step, units a lane a pass and
+    passes; at D = 128 and 768 every lane loads a unit in every warp-step,
+    and at D = 768 every unit slot of a lane holds a unit of the row."""
+    got_unit, units, got_lanes, got_nc, got_passes, _, _ = i8_plan(4, 32, d)
+    assert (got_unit, got_lanes, 32 // got_lanes, got_nc, got_passes) == (
+        unit, lanes, rows_a_step, nc, passes)
+    sub = np.arange(32) & (lanes - 1)
+    if d in (128, 768):
+        assert (sub < units).all()
+    if d == 768:
+        assert units == 32 * nc * passes
+    # the units of a row are split over its lanes with none left over
+    taken = sorted(int(c) for p in range(passes) for k in range(nc)
+                   for c in (p * nc + k) * lanes + np.arange(lanes)
+                   if c < units)
+    assert taken == list(range(units))
+
+
+def test_int8_glove_plan():
+    """Glove's hop (B 1,024, E 4, M0 32, D 128): 16-byte units, eight lanes
+    a row, four rows a step, eight tasks of four steps a query (half a
+    block each), four warps a query where the card holds 4,224 warps at
+    once. At D = 768 all lanes share a row, three 8-byte units a lane."""
+    assert K8["kI8Steps"] == 4
+    assert i8_plan(4, 32, 128, b=1024) == (16, 8, 8, 1, 1, 8, 4)
+    assert i8_plan(4, 32, 768, b=1024) == (8, 96, 32, 3, 1, 32, 4)
+    # 512 contiguous bytes a warp-step at D = 128
+    assert 32 * 16 == 4 * 128
+
+
+@pytest.mark.parametrize("lanes,s", [(1, 4), (2, 4), (4, 4), (8, 4),
+                                     (16, 4), (32, 4), (8, 8), (32, 8)])
+def test_int8_reduction_shuffles(lanes, s):
+    """The halving exchanges: s - 1 shuffles a task where lanes >= s, each
+    round after those one more; every lane ends with whole sums."""
+    shuffles = sum(max(1, s >> (i + 1)) for i in range(int(np.log2(lanes))))
+    want = (s - 1 + int(np.log2(lanes // s))) if lanes >= s else \
+        s - s // lanes
+    assert shuffles == want
+    base, held = i8_reduction(lanes, s)
+    for x in range(32):
+        assert len(held[x][0]) == lanes
+
+
+def test_int8_instantiations_cover_every_plan():
+    """The entry point's switch names the instantiation of every plan."""
+    code = HOP_CU.read_text()
+    body = code.split("int i8_kernel(", 1)[1].split("\n}\n", 1)[0]
+    made = set(re.findall(r"hop_int8_kernel<(\d+), (\w+), (\d+)>", body))
+    want = {(str(lanes), "1", "16") for lanes in (1, 2, 4, 8, 16, 32)} | {
+        ("32", "2", "16"), ("32", "kI8RegUnits", "16"),
+        ("32", "kI8RegUnits", "8")}
+    assert made == want and K8["kI8RegUnits"] == 3
+    for d16 in range(1, 400):
+        unit, _, lanes, nc, _, _, _ = i8_plan(4, 32, 16 * d16)
+        assert nc == 1 or lanes == 32
+        assert unit == 16 or (lanes, nc) == (32, 3)
+
+
+def test_chip_smoke_names_the_int8_kernel():
+    from tests.test_torch_kernel_plan import _kernel_entries
+    assert _kernel_entries()["hop_score_int8"] == (
+        "hop.cu", "15hop_int8_kernelILi8ELi1ELi16EE")
+    code = HOP_CU.read_text()
+    # the old plan of four rows a warp is gone
+    assert "kI8Units" not in code and "kI8Rows" not in code
+
+
+def _int8_ablate():
+    spec = importlib.util.spec_from_file_location(
+        "hop_int8_ablate", REPO / "scripts" / "hop_int8_ablate.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("variant", sorted(_int8_ablate().VARIANTS))
+def test_each_int8_ablation_finds_its_pieces(variant):
+    code = HOP_CU.read_text()
+    for old, new in _int8_ablate().VARIANTS[variant]:
+        assert code.count(old) == 1, (variant, old)
+        code = code.replace(old, new)

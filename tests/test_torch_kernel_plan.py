@@ -147,9 +147,10 @@ def _byte_perm(x, y, s):
 @pytest.mark.parametrize("j", range(4))
 def test_int8_hop_byte_conversion_is_exact(j):
     code = (REPO / "hnsw_tpu_torch" / "csrc" / "hop.cu").read_text()
-    m = re.search(r"raw\.x \^ (0x[0-9A-F]+)u.*?__byte_perm\(w\[h\], (0x[0-9A-F]+)u, "
-                  r"(0x[0-9A-F]+) \+ j\)\),\s*([0-9.]+)f\)", code, re.S)
-    assert m, "the conversion of dot8_int8 is not where this test reads it"
+    m = re.search(r"raw\[u\]\[k\]\[h\] \^ (0x[0-9A-F]+)u;.*?"
+                  r"__byte_perm\(word, (0x[0-9A-F]+)u, (0x[0-9A-F]+) \+ j\)\),"
+                  r"\s*([0-9.]+)f\)", code, re.S)
+    assert m, "the conversion of hop_int8_kernel is not where this test reads it"
     flip, magic, sel = (int(m.group(i), 16) for i in (1, 2, 3))
     sub = float(m.group(4))
     rng = np.random.default_rng(j)
