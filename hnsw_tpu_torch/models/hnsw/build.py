@@ -39,6 +39,10 @@ from hnsw_tpu_torch.utils import tracing
 BUILD_TILE = 1024
 # layers at or below this size build entirely on host
 HOST_LAYER_MAX = 512
+# build_precision "auto": euclidean corpora of at most this many rows keep
+# f32 products (the norm formula cancels at bf16); larger ones, and cosine
+# at every size, take bf16 products, as the N^2 cost forces
+F32_BUILD_MAX = 50000
 
 
 class BuildInterrupted(Exception):
@@ -472,8 +476,8 @@ def build_graph(
     build_large.LARGE_N rows take the bucketed builder, whose cells pool
     the rows that have them among their nearest centroids (spill: the
     reference's cell-to-cell probes leave clusters that k-means split in
-    pieces the search cannot cross). Records the span
-    hnsw.build (attribute rows) and inside it hnsw.build.layers (layer 0's
+    pieces the search cannot cross). Records the span hnsw.build
+    (attributes rows and metric) and inside it hnsw.build.layers (layer 0's
     dispatch and the upper layers built on the host), .fetch (waiting for
     the device layers) and .repair (bridge_components); inside .layers, one
     span hnsw.build.clustered_l<level> (attributes rows and cells) around
@@ -487,19 +491,16 @@ def build_graph(
             raise BuildInterrupted(f"build interrupted at {stage}")
         if progress is not None:
             progress(stage, frac)
-    with tracing.span("hnsw.build", rows=corpus.n):
+    metric = Metric.coerce(metric or corpus.metric)
+    with tracing.span("hnsw.build", rows=corpus.n, metric=metric.value):
         n = corpus.n
         n_pad = corpus.n_pad
         dev = corpus.device
         m0 = m0 or 2 * m
         ml = ml if ml is not None else 1.0 / math.log(2.0)
-        metric = metric or corpus.metric
         k_cand = k_cand or min(max(2 * m0, 48), 192)
         if build_precision == "auto":
-            # bf16 products for cosine at every size; euclidean's norm formula
-            # cancels at bf16, so it keeps f32 until the N^2 cost forces the
-            # trade above ~50k rows
-            if metric == Metric.COSINE or n > 50000:
+            if metric == Metric.COSINE or n > F32_BUILD_MAX:
                 build_precision = "bf16"
             else:
                 build_precision = "highest"

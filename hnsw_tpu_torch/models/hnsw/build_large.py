@@ -282,15 +282,15 @@ def build_layer_clustered(
     the cell among its n_probe_clusters + 1 nearest centroids, and a row's
     cell is its nearest centroid's.
 
-    Records the span hnsw.build.large (attributes: rows, cells and the
-    plan's largest_pool, pool_pad, cell_chunk_rows, refine_chunk_rows,
-    tile) and inside it four consecutive stages, each closed after a wait
-    for its device work: .kmeans (train_kmeans and the cells' members and
-    pools), .cells (the padded score arrays and the per-cell
-    candidate pass), .symmetrize (the first _symmetrize_fused) and .refine
-    (every NN-descent round with its re-symmetrize; attribute rounds, 0
-    where the layer is one cell's size or less). The adjacency's fetch
-    ends the outer span."""
+    Records the span hnsw.build.large (attributes: rows, cells, metric,
+    precision and the plan's largest_pool, pool_pad, cell_chunk_rows,
+    refine_chunk_rows, tile) and inside it four consecutive stages, each
+    closed after a wait for its device work: .kmeans (train_kmeans and the
+    cells' members and pools), .cells (the padded score arrays and the
+    per-cell candidate pass), .symmetrize (the first _symmetrize_fused) and
+    .refine (every NN-descent round with its re-symmetrize; attribute
+    rounds, 0 where the layer is one cell's size or less). The adjacency's
+    fetch ends the outer span."""
     def _tick(stage, frac=0.0):
         if progress is not None:
             progress(stage, frac)
@@ -301,7 +301,8 @@ def build_layer_clustered(
     member_rows = np.asarray(member_rows, np.int32)
     kk = cell_count(ns, cluster_size)
 
-    with tracing.span("hnsw.build.large", rows=ns, cells=kk) as large:
+    with tracing.span("hnsw.build.large", rows=ns, cells=kk,
+                      metric=metric.value, precision=precision) as large:
         with _stage("hnsw.build.large.kmeans", dev):
             # layer 0's member set is the identity (callers pass sorted
             # unique rows, so first == 0 and last == ns - 1 imply arange):

@@ -276,7 +276,8 @@ def test_build_records_its_stage_spans(fresh, data):
     build_hnsw_index(data[:600], M=8, device="cpu")
     spans = tracing.collect().spans
     root = next(s for s in spans if s.name == "hnsw.build")
-    assert root.attrs == {"rows": 600} and root.parent == 0
+    assert root.attrs == {"rows": 600, "metric": "cosine"}
+    assert root.parent == 0
     stages = {s.name: s for s in spans if s.parent == root.id}
     assert list(stages) == ["hnsw.build.layers", "hnsw.build.fetch",
                             "hnsw.build.repair"]
@@ -286,6 +287,33 @@ def test_build_records_its_stage_spans(fresh, data):
         stages["hnsw.build.fetch"].start_ns
     assert stages["hnsw.build.fetch"].end_ns <= \
         stages["hnsw.build.repair"].start_ns
+
+
+@pytest.mark.parametrize("metric,f32_max,precision", [
+    ("cosine", None, "bf16"),
+    ("euclidean", None, "highest"),
+    ("euclidean", 1000, "bf16"),
+])
+def test_build_spans_name_the_metric_and_the_precision(
+        fresh, data, monkeypatch, metric, f32_max, precision):
+    """hnsw.build names the metric, and each hnsw.build.large the metric and
+    the products' precision its layer took under build_precision "auto":
+    bf16 for cosine; for euclidean f32 up to build.F32_BUILD_MAX rows and
+    bf16 past it (lowered here, as a million rows pass it)."""
+    from hnsw_tpu_torch.models.hnsw import build, build_large
+    monkeypatch.setattr(build_large, "LARGE_N", 500)
+    if f32_max is not None:
+        monkeypatch.setattr(build, "F32_BUILD_MAX", f32_max)
+    build_hnsw_index(data, M=8, metric=metric, device="cpu")
+    spans = tracing.collect().spans
+    (root,) = [s for s in spans if s.name == "hnsw.build"]
+    assert root.attrs == {"rows": len(data), "metric": metric}
+    large = [s for s in spans if s.name == "hnsw.build.large"]
+    # layers 0 and 1 (1,100 and about 550 rows) pass LARGE_N
+    assert len(large) == 2
+    for s in large:
+        assert (s.attrs["metric"], s.attrs["precision"]) == (metric,
+                                                             precision)
 
 
 STAGES = ("kmeans", "cells", "symmetrize", "refine")
@@ -322,10 +350,14 @@ def test_clustered_layer_records_its_stage_spans(fresh, data, monkeypatch):
     assert large.parent == clustered.id and clustered.parent == layers.id
     assert layers.parent == root.id and large.request == root.id
     assert large.attrs["rows"] == len(data) and large.attrs["cells"] == 2
-    assert set(large.attrs) == {"rows", "cells", "largest_pool", "pool_pad",
-                                "cell_chunk_rows", "refine_chunk_rows",
-                                "tile"}
-    assert all(isinstance(v, int) and v > 0 for v in large.attrs.values())
+    plan = {"rows", "cells", "largest_pool", "pool_pad", "cell_chunk_rows",
+            "refine_chunk_rows", "tile"}
+    assert set(large.attrs) == plan | {"metric", "precision"}
+    assert all(isinstance(large.attrs[k], int) and large.attrs[k] > 0
+               for k in plan)
+    # the route the layer took: cosine rows build with bf16 products
+    assert (large.attrs["metric"], large.attrs["precision"]) == \
+        ("cosine", "bf16")
     stages = [s for s in spans if s.parent == large.id]
     names = ["hnsw.build.large." + st for st in STAGES]
     assert [s.name for s in stages] == names
