@@ -8,10 +8,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
   2. build the kernels of hnsw_tpu_torch/csrc with nvcc (sm_90a);
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (hop_score at its three hops: phase 4's, hop
-     width 256, and phase 8's 128-dim pack; hop_gather_score, G1, at an f32
-     euclidean hop body of 1,024 x 128 slots over 60,000 x 896 rows and at
-     the re-rank of 1,024 x 40 over 31,173 x 768, f32 and bf16 rows, each
-     metric), and time kernel, plain version
+     width 256, and phase 8's 128-dim pack; hop_gather_score, G1, at f32
+     euclidean hop bodies of 1,024 x 128 slots over 60,000 x 896 rows and,
+     on its warp plan, over 1,000,000 x 128, and at the re-rank of 1,024 x
+     40 over 31,173 x 768, f32 and bf16 rows, each metric), and time
+     kernel, plain version
      and a PyTorch yardstick that the port never calls (the hop kernels
      also on rotated operands past the L2, with the wrapper's host
      microseconds and the bf16 kernel's shared memory per block);
@@ -160,6 +161,9 @@ KERNEL_ENTRIES = {
     "hop_merge": ("merge.cu", "16hop_merge_kernel"),
     # f32 rows, euclidean, eight chunks a lane: fmnist's hop body
     "hop_gather_score": ("gather.cu", "19gather_score_kernelIfLi1ELi8E"),
+    # the warp plan, f32 rows, euclidean, 32 lanes a row: sift's hop body
+    "hop_gather_score_warp": ("gather.cu",
+                              "24gather_score_kernel_warpIfLi1ELi32E"),
 }
 
 
@@ -333,21 +337,29 @@ def check_gather_kernel(torch, records):
     """G1 against its plain version: at an f32 euclidean hop body (B=1,024,
     C=128, 60,000 x 896 rows; fmnist60k.bulk's shares: 16.9% of the queries
     stopped, with no valid slot, and 17.3% of the others' slots not valid,
-    0.687 valid in all; rows clamped to 0 there) and at the re-rank
-    (B=1,024, C=40, 31,173 x 768), each with f32 and bf16 rows and each
-    metric: BIG exactly where not valid, distances within 3e-5 |q| |v| (f32
-    sums of the same products in other orders; euclidean as d^2). Then each
-    shape's f32 euclidean call timed: one call, back to back, as a node of
-    a graph of eight calls on eight draws of rows (as the search's bodies
-    pay), the plain version, and the PyTorch gather + einsum alone, beside
-    the byte bound of the valid rows read once. The records hold the
-    hop body's."""
+    0.687 valid in all; rows clamped to 0 there), at sift1m.bulk's (the
+    warp plan: 1,000,000 x 128 rows, 15.4% stopped, 20.8% of the others'
+    slots not valid, 0.670 valid in all) and at the re-rank (B=1,024, C=40,
+    31,173 x 768), each with f32 and bf16 rows and each metric: BIG exactly
+    where not valid, distances within 3e-5 |q| |v| (f32 sums of the same
+    products in other orders; euclidean as d^2). Then each shape's f32
+    euclidean call timed: one call, back to back, as a node of a graph of
+    eight calls on eight draws of rows (as the search's bodies pay), the
+    plain version, and the PyTorch gather + einsum alone, beside the byte
+    bound of the valid rows read once, with the ptxas registers and spills
+    of the instantiation it runs. The records hold fmnist's hop body's."""
     from hnsw_tpu_torch.bench.kernels import burst_ms
     from hnsw_tpu_torch.ops import gather
 
     kernel, plain = gather.hop_gather_score, gather.hop_gather_score_plain
-    for label, (b, c, n, d) in (("hop body", (1024, 128, 60000, 896)),
-                                ("re-rank", (1024, 40, 31173, 768))):
+    # label, (B, C, N, D), (stopped, not valid), ptxas entry, shared bytes
+    for label, (b, c, n, d), (stopped, invalid), entry, smem in (
+            ("hop body", (1024, 128, 60000, 896), (0.169, 0.173),
+             "hop_gather_score", gather.shared_bytes(896, 4)),
+            ("sift hop body", (1024, 128, 1_000_000, 128), (0.154, 0.208),
+             "hop_gather_score_warp", 0),
+            ("re-rank", (1024, 40, 31173, 768), (0.169, 0.173),
+             "hop_gather_score", gather.shared_bytes(768, 4))):
         g = torch.Generator(device="cpu").manual_seed(SEED + d)
         vectors = torch.nn.functional.normalize(
             torch.randn(n, d, generator=g), dim=1).cuda()
@@ -358,8 +370,8 @@ def check_gather_kernel(torch, records):
         draws = []
         for _ in range(8):
             rows = torch.randint(0, n, (b, c), generator=g, dtype=torch.int32)
-            valid = torch.rand(b, c, generator=g) >= 0.173
-            valid[torch.rand(b, generator=g) < 0.169] = False
+            valid = torch.rand(b, c, generator=g) >= invalid
+            valid[torch.rand(b, generator=g) < stopped] = False
             draws.append((torch.where(valid, rows, 0).cuda(), valid.cuda()))
         rows, valid = draws[0]
         c_sq = v_sq[rows.long()]
@@ -415,8 +427,7 @@ def check_gather_kernel(torch, records):
             plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
             bound_ms=bytes_ms, bound_by="bytes",
             bytes_per_s_node=nbytes / (node_ms * 1e-3),
-            shared_memory_bytes=gather.shared_bytes(d, 4),
-            **ptxas_fields("hop_gather_score"))
+            shared_memory_bytes=smem, **ptxas_fields(entry))
         if label == "hop body":
             records["hop_gather_score"] = dict(
                 name="hop_gather_score", route="cuda",

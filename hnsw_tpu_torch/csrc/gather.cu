@@ -1,6 +1,7 @@
 // The HNSW search's candidate scoring where it reads rows, not a neighbour
 // pack: each valid candidate's row gathered and dotted with the query in
-// place, one block a query.
+// place, one block a query, or at rows of at most 512 bytes one warp for
+// 32 slots.
 //
 // Hand-written, with no pallas_call counterpart: it replaces the f32 gather
 // and einsum of the reference's hop body (hnsw_tpu/models/hnsw/search.py,
@@ -25,7 +26,12 @@
 // once: at a valid share of 0.688, 90,200 rows of 3,584 bytes a body at the
 // shape above, 323 MB, 0.096 ms at 3.35 TB/s; the ids, flags, norms and the
 // output add about 1.3 MB. So the design reads nothing else, writes only
-// the [B, C] output, and keeps enough rows in flight:
+// the [B, C] output, and keeps enough rows in flight. Two plans, picked per
+// launch from the row's 16-byte chunks alone: a block a query for wide rows
+// (gather_score_kernel), a warp for 32 slots where a row is at most 32
+// chunks (gather_score_kernel_warp, below).
+//
+// The block plan (rows of more than 32 chunks):
 // - A block of kThreads threads takes one query. The query, rounded to the
 //   rows' type, is staged once in shared memory in the rows' 16-byte
 //   layout.
@@ -47,9 +53,34 @@
 // - Each row's sum is reduced over its lanes by xor shuffles; the row's
 //   first lane computes its distance and writes it.
 // - Any B, C and N_pad, and any D whose rows are whole 16-byte chunks: NC
-//   is the chunks a lane takes of a row in one pass (1, 2, 4 or 8), and a
-//   wider row takes several passes. The query's chunks bound D
+//   is the chunks a lane takes of a row in one pass (2, 4 or 8: the warp
+//   plan takes rows of one chunk a lane), and a wider row takes several
+//   passes. The query's chunks bound D
 //   (hop_gather_score_shared_bytes is 0 past a block's shared memory).
+//
+// The warp plan (rows of at most 32 chunks: f32 D <= 128, bf16 D <= 256).
+// Under the block plan a 512-byte row (sift's D = 128 f32) left the kernel
+// at 39% of its byte bound: half of a block's threads held no slot at
+// C = 128, three dependent trips to memory and two block barriers came
+// before the first row load, and about 86 valid rows took a second,
+// mostly empty pass of the list. Here no barrier and no shared memory:
+// - A warp owns 32 consecutive slots of one query (four warps a query at
+//   C = 128). Each lane loads its slot's flag and id in one trip, a ballot
+//   gives the warp's valid slots, and lane j takes the id of the j-th valid
+//   slot by one shuffle from its owner.
+// - L lanes share a row (its chunks rounded up to a power of two), 32 / L
+//   rows a warp-step, lane (sub, p) taking chunk sub of row step * 32/L + p;
+//   at L = 32 one load instruction of a warp reads a whole 512-byte row,
+//   past L1. A warp issues the loads of kWarpSteps warp-steps before their
+//   products, the slots' norms in the same wave; its query chunk sits in
+//   registers.
+// - The G sums a lane holds of a batch are halved over the row's lanes
+//   (a lane keeps half and sends half to its partner, largest offset
+//   first), leaving one partial a batch, and the batches' partials are
+//   halved the same way: L - 1 shuffles in all (31 for 32 rows, where a
+//   5-round sum a row took 160), after which lane j holds the sum of the
+//   j-th valid row. Each lane takes its own slot's sum by one shuffle and
+//   writes its distance, or BIG: one coalesced 128-byte store a warp.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -69,7 +100,7 @@ constexpr float kBig = 1e30f;             // ops/distance.py BIG
 
 // warp-steps a warp scores at once, by chunks a lane a pass: 64 registers
 // of loads in flight a lane
-__host__ __device__ constexpr int batch_steps(int nc) { return nc == 1 ? 8 : 16 / nc; }
+__host__ __device__ constexpr int batch_steps(int nc) { return 16 / nc; }
 
 template <typename T> struct Vals { static constexpr int n = 16 / sizeof(T); };
 
@@ -260,6 +291,128 @@ gather_score_kernel(const float* __restrict__ queries, const float* __restrict__
     }
 }
 
+// ---------------------------------------------------------------------------
+// The warp plan: rows of at most kWarpChunks chunks
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpThreads = 128;         // threads a block (four warps)
+constexpr int kWarpWarps = kWarpThreads / 32;
+constexpr int kWarpSteps = 8;             // warp-steps whose loads go out at once
+constexpr int kWarpChunks = 32;           // the widest row: one chunk a lane
+
+// one 16-byte chunk of a row through the read-only path, leaving L1 to the
+// ids, flags and query (each chunk of a slot's row is read once)
+__device__ __forceinline__ uint4 load_chunk(const uint4* p) {
+    uint4 v;
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "l"(p));
+    return v;
+}
+
+// the position of the j-th (from 0) set bit of mask, for j < popc(mask)
+__device__ __forceinline__ int nth_set_bit(unsigned mask, int j) {
+    int pos = 0;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) {
+        const int low = __popc(mask & ((1u << w) - 1u));
+        if (j >= low) {
+            j -= low;
+            mask >>= w;
+            pos += w;
+        }
+    }
+    return pos;
+}
+
+// Halving exchanges of V values over the lanes at offsets OFF, 2 OFF, ...,
+// V / 2 x OFF, largest first: a lane whose bit is set keeps the upper half
+// of the values it holds and sends the lower half, its partner the reverse.
+// v[0] is then the sum over those V lanes of the value whose index bit k is
+// the lane's bit at offset OFF << k.
+template <int V, int OFF>
+__device__ __forceinline__ void halve(float (&v)[V], int lane) {
+#pragma unroll
+    for (int half = V / 2; half > 0; half /= 2) {
+        const bool upper = (lane & (OFF * half)) != 0;
+#pragma unroll
+        for (int j = 0; j < half; ++j) {
+            const float send = upper ? v[j] : v[half + j];
+            const float keep = upper ? v[half + j] : v[j];
+            v[j] = keep + __shfl_xor_sync(kFull, send, OFF * half);
+        }
+    }
+}
+
+// L lanes a row (its chunks rounded up to a power of two), 32 / L rows a
+// warp-step; a warp takes slots 32 seg ... 32 seg + 31 of one query.
+template <typename T, int METRIC, int L>
+__global__ void __launch_bounds__(kWarpThreads)
+gather_score_kernel_warp(const float* __restrict__ queries, const float* __restrict__ q_sq,
+                         const void* __restrict__ rows, int rows64,
+                         const T* __restrict__ vectors, const float* __restrict__ v_sq,
+                         const unsigned char* __restrict__ valid, float* __restrict__ out,
+                         int B, int C, int N_pad, int chunks) {
+    constexpr int R = 32 / L;                           // rows a warp-step
+    constexpr int G = L < kWarpSteps ? L : kWarpSteps;  // warp-steps a batch
+    constexpr int NB = L / G;                           // batches
+    const int segs = (C + 31) >> 5;                     // warps a query
+    const long long w = (long long)blockIdx.x * kWarpWarps + (threadIdx.x >> 5);
+    if (w >= (long long)B * segs) return;
+    const long long b = w / segs;
+    const int lane = threadIdx.x & 31;
+    const int s = (int)(w - b * segs) * 32 + lane;      // the lane's slot
+    const int p = lane & (R - 1), sub = lane / R;       // its row of a step, its chunk
+    const long long D = (long long)chunks * Vals<T>::n;
+    const long long at = b * C + s;
+
+    // the slot's flag and id in one trip, the query's chunk and norm beside
+    bool v = false;
+    int r = 0;
+    if (s < C) {
+        v = valid[at] != 0;
+        r = row_at(rows, rows64, at, N_pad);
+    }
+    const uint4 q = sub < chunks ? load_query<T>(queries + b * D, sub) : make_uint4(0u, 0u, 0u, 0u);
+    const float qsq = q_sq[b];
+    const unsigned ballot = __ballot_sync(kFull, v);
+    const int n = __popc(ballot);
+    // lane j: the row of the warp's j-th valid slot
+    const int row_j = __shfl_sync(kFull, r, nth_set_bit(ballot, lane));
+    const float csq = v ? __ldg(v_sq + r) : 0.f;
+
+    // batches of G warp-steps, while any of their rows is valid (the same
+    // in every lane): step t reads valid row t R + p at chunk sub; a batch's
+    // loads all go out before its products, whose G sums are halved to one
+    float part[NB];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+        part[nb] = 0.f;
+        if (nb * G * R < n) {
+            uint4 raw[G];
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+                const int j = (nb * G + g) * R + p;
+                const int rr = __shfl_sync(kFull, row_j, j);
+                raw[g] = j < n && sub < chunks
+                             ? load_chunk(reinterpret_cast<const uint4*>(vectors + (long long)rr * D) + sub)
+                             : make_uint4(0u, 0u, 0u, 0u);
+            }
+            float acc[G];
+#pragma unroll
+            for (int g = 0; g < G; ++g) acc[g] = dot_chunk<T>(q, raw[g], 0.f);
+            halve<G, R>(acc, lane);
+            part[nb] = acc[0];
+        }
+    }
+    halve<NB, R * G>(part, lane);
+    // lane j now holds the j-th valid row's sum; each slot's lane takes the
+    // sum of its rank among the valid slots, and the warp stores its 32
+    // slots at once
+    const float dot = __shfl_sync(kFull, part[0], __popc(ballot & ((1u << lane) - 1u)));
+    if (s < C) out[at] = v ? distance<METRIC>(dot, qsq, csq) : kBig;
+}
+
 // the lanes a row takes (log2): its chunks rounded up to a power of two, at
 // most 32
 inline int lanes_log_of(int chunks) {
@@ -268,22 +421,43 @@ inline int lanes_log_of(int chunks) {
     return l;
 }
 
+template <typename T, int METRIC, int L>
+int launch_warp(const float* queries, const float* q_sq, const void* rows, int rows64,
+                const T* vectors, const float* v_sq, const unsigned char* valid, float* out,
+                int B, int C, int N_pad, int chunks, cudaStream_t st) {
+    const long long warps = (long long)B * ((C + 31) / 32);
+    gather_score_kernel_warp<T, METRIC, L>
+        <<<(int)((warps + kWarpWarps - 1) / kWarpWarps), kWarpThreads, 0, st>>>(
+            queries, q_sq, rows, rows64, vectors, v_sq, valid, out, B, C, N_pad, chunks);
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int METRIC>
 int launch_metric(const float* queries, const float* q_sq, const void* rows, int rows64,
                   const T* vectors, const float* v_sq, const unsigned char* valid, float* out,
                   int B, int C, int N_pad, int chunks, cudaStream_t st) {
     const int lanes_log = lanes_log_of(chunks);
+    if (chunks <= kWarpChunks) {
+        auto launch = lanes_log == 0   ? launch_warp<T, METRIC, 1>
+                      : lanes_log == 1 ? launch_warp<T, METRIC, 2>
+                      : lanes_log == 2 ? launch_warp<T, METRIC, 4>
+                      : lanes_log == 3 ? launch_warp<T, METRIC, 8>
+                      : lanes_log == 4 ? launch_warp<T, METRIC, 16>
+                                       : launch_warp<T, METRIC, 32>;
+        return launch(queries, q_sq, rows, rows64, vectors, v_sq, valid, out, B, C, N_pad,
+                      chunks, st);
+    }
+    // past kWarpChunks a lane takes at least two chunks of a row
     const int per_lane = (chunks + (1 << lanes_log) - 1) >> lanes_log;
-    const int k = per_lane <= 1 ? 0 : per_lane <= 2 ? 1 : per_lane <= 4 ? 2 : 3;
-    auto kernel = k == 0   ? gather_score_kernel<T, METRIC, 1>
-                  : k == 1 ? gather_score_kernel<T, METRIC, 2>
-                  : k == 2 ? gather_score_kernel<T, METRIC, 4>
+    const int k = per_lane <= 2 ? 0 : per_lane <= 4 ? 1 : 2;
+    auto kernel = k == 0   ? gather_score_kernel<T, METRIC, 2>
+                  : k == 1 ? gather_score_kernel<T, METRIC, 4>
                            : gather_score_kernel<T, METRIC, 8>;
     const int smem = (int)shared_bytes(chunks);
     // shared memory above the 48 KB default (a wide query), set once per
     // device and instantiation, at an eager call (never inside a graph
     // capture)
-    static bool sized[4][64];
+    static bool sized[3][64];
     int dev = 0;
     cudaGetDevice(&dev);
     if (smem > kDefaultSmem && (dev >= 64 || !sized[k][dev])) {

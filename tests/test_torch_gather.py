@@ -1,8 +1,9 @@
 """The search's candidate scoring against rows (hnsw_tpu_torch/ops/gather.py)
 on the CPU: the plain version against a loop written out on the kernel's
-contract, shadow_score against the operators it ran before, a model of
-csrc/gather.cu's plan (the compaction rounds and the lanes' chunks) against
-the contract's coverage, the wrapper's CPU route and refusals, and the
+contract, shadow_score against the operators it ran before, models of
+csrc/gather.cu's two plans (the block plan's compaction rounds and lanes'
+chunks; the warp plan's reads, halvings and stores, and the width that
+picks it) against the contract, the wrapper's CPU route and refusals, and the
 counter of hop bodies whose score ran the kernel. No JAX; the kernel itself
 runs in tests/test_torch_gpu.py on the card.
 """
@@ -237,6 +238,145 @@ def test_kernel_compaction_places_every_slot_once(c):
         written[listed] += 1
         written[s[(s < c) & ~v]] += 1
     assert (written == 1).all()
+
+
+def warp_plan(d, value_bytes):
+    """csrc/gather.cu's warp plan where a row is at most kWarpChunks chunks:
+    (chunks, lanes a row, rows a warp-step, warp-steps a batch, batches);
+    None where the block plan takes the row."""
+    chunks = d * value_bytes // 16
+    if chunks > _source_int("kWarpChunks"):
+        return None
+    lanes = 1
+    while lanes < chunks:
+        lanes *= 2
+    steps = min(lanes, _source_int("kWarpSteps"))
+    return chunks, lanes, 32 // lanes, steps, lanes // steps
+
+
+def nth_set_bit(mask, j):
+    """gather.cu's nth_set_bit: a binary search over popcounts."""
+    pos, w = 0, 16
+    while w:
+        low = bin(mask & ((1 << w) - 1)).count("1")
+        if j >= low:
+            j, mask, pos = j - low, mask >> w, pos + w
+        w //= 2
+    return pos
+
+
+def halve(vals, off):
+    """gather.cu's halve<V, OFF> over the warp's lanes: vals [32, V] ->
+    (v[0] of each lane, shuffles a lane)."""
+    v, lanes = vals.copy(), np.arange(32)
+    half, shuffles = v.shape[1] // 2, 0
+    while half:
+        upper = ((lanes & (off * half)) != 0)[:, None]
+        send = np.where(upper, v[:, :half], v[:, half:2 * half])
+        keep = np.where(upper, v[:, half:2 * half], v[:, :half])
+        v = keep + send[lanes ^ (off * half)]
+        shuffles += half
+        half //= 2
+    return v[:, 0], shuffles
+
+
+def run_warp_plan(valid, rows, q, vectors, plan):
+    """gather_score_kernel_warp over one query's C slots, warp by warp, lane
+    by lane (valid [C], rows [C], q [chunks, V], vectors [N, chunks, V]):
+    the value written to each slot (None for BIG), the writes a slot, the
+    (warp, slot, chunk) of every row read, and the reductions' shuffles a
+    warp."""
+    chunks, lanes_n, r_, steps, batches = plan
+    c = len(valid)
+    lane = np.arange(32)
+    p, sub = lane & (r_ - 1), lane // r_
+    out, written, reads, shuffles = [None] * c, np.zeros(c, int), [], []
+    for seg in range(-(-c // 32)):
+        s = seg * 32 + lane
+        v = (s < c) & valid[np.minimum(s, c - 1)]
+        r = np.where(s < c, rows[np.minimum(s, c - 1)], 0)
+        ballot = sum(1 << int(t) for t in np.nonzero(v)[0])
+        n = bin(ballot).count("1")
+        row_j = r[[nth_set_bit(ballot, t) for t in range(32)]]
+        part = np.zeros((32, batches))
+        count = 0
+        for nb in range(batches):
+            if nb * steps * r_ >= n:
+                continue
+            acc = np.zeros((32, steps))
+            for g in range(steps):
+                j = (nb * steps + g) * r_ + p
+                for t in np.nonzero((j < n) & (sub < chunks))[0]:
+                    reads.append((seg, seg * 32 + nth_set_bit(ballot, j[t]),
+                                  sub[t]))
+                    acc[t, g] = q[sub[t]] @ vectors[row_j[j[t]], sub[t]]
+            part[:, nb], k = halve(acc, r_)
+            count += k
+        total, k = halve(part, r_ * steps)
+        shuffles.append(count + k)
+        for t in np.nonzero(s < c)[0]:
+            rank = bin(ballot & ((1 << int(t)) - 1)).count("1")
+            out[s[t]] = total[rank] if v[t] else None
+            written[s[t]] += 1
+    return out, written, reads, shuffles
+
+
+@pytest.mark.parametrize("d,value_bytes", [(16, 4), (64, 4), (128, 4),
+                                           (16, 2), (112, 2), (256, 2)])
+@pytest.mark.parametrize("c", [1, 13, 32, 128, 300])
+def test_warp_plan_scores_each_slot_once(c, d, value_bytes):
+    """The warp plan on integer values (sums exact in float64): each valid
+    slot's chunks read exactly once, by the warp that owns the slot, and no
+    row of a slot that is not valid; lane j holding the j-th valid row's
+    sum after the halvings, L - 1 shuffles of them a warp that scores
+    every batch; each slot written once, BIG exactly where not valid."""
+    plan = warp_plan(d, value_bytes)
+    chunks, lanes_n = plan[:2]
+    rng = np.random.default_rng(c * 1000 + d * value_bytes)
+    n_rows, per_chunk = 50, 16 // value_bytes
+    vectors = rng.integers(-8, 9, (n_rows, chunks, per_chunk)).astype(float)
+    q = rng.integers(-8, 9, (chunks, per_chunk)).astype(float)
+    valid = rng.random(c) >= 0.31
+    valid[32:64] = False          # a warp with no valid slot
+    valid[64:96] = True           # and one with every slot valid
+    rows = np.where(valid, rng.integers(0, n_rows, c), 0)
+    out, written, reads, shuffles = run_warp_plan(valid, rows, q, vectors,
+                                                  plan)
+    assert (written == 1).all()
+    for s in range(c):
+        want = (q * vectors[rows[s]]).sum() if valid[s] else None
+        assert out[s] == want, s
+    seen = {}
+    for seg, s, chunk in reads:
+        assert valid[s] and seg == s // 32
+        seen[(s, chunk)] = seen.get((s, chunk), 0) + 1
+    assert sorted(seen) == [(s, k) for s in np.nonzero(valid)[0]
+                            for k in range(chunks)]
+    assert set(seen.values()) <= {1}
+    if c >= 96:
+        assert shuffles[2] == lanes_n - 1
+
+
+@pytest.mark.parametrize("d,value_bytes", [(896, 4), (768, 4), (256, 4),
+                                           (132, 4), (128, 4), (64, 4),
+                                           (16, 4), (768, 2), (264, 2),
+                                           (256, 2), (112, 2), (16, 2)])
+def test_launcher_picks_the_plan_by_width(d, value_bytes):
+    """The warp plan at rows of at most 32 chunks (f32 D <= 128, bf16
+    D <= 256), the block plan above, with fmnist's D 896 on (32 lanes, NC 8,
+    one pass) as before; the launcher tests the same bound."""
+    assert "if (chunks <= kWarpChunks) {" in SOURCE
+    narrow = d * value_bytes <= 512
+    assert (warp_plan(d, value_bytes) is not None) == narrow
+    if narrow:
+        chunks, lanes_n, r_, steps, batches = warp_plan(d, value_bytes)
+        assert lanes_n * r_ == 32 and steps * batches == lanes_n
+        assert chunks <= lanes_n < 2 * chunks
+    if (d, value_bytes) == (896, 4):
+        _, lanes_n, _, nc, passes = plan(d, value_bytes)
+        assert (lanes_n, nc, passes) == (32, 8, 1)
+    if (d, value_bytes) == (128, 4):
+        assert warp_plan(d, value_bytes) == (32, 32, 1, 8, 4)
 
 
 @pytest.fixture(scope="module")

@@ -802,12 +802,17 @@ def _gather_inputs(b, c, n, d, dtype, device, seed=0):
 # (B, C, N, D): fmnist's hop body (1,024 queries, E 4 x M0 32 slots, 60,000
 # rows of 896 f32 after the corpus's padding); Bible's re-rank (rerank_mult
 # 4 x k 10 over 31,173 x 768); the first entry (C = 1); C = 300, past a
-# block's 256 slots (two compaction rounds), at pack_dim 112's width; D =
-# 4,096 (several passes a lane) and 16,384 (64 KB of f32 query, past the
-# 48 KB default of shared memory)
+# block's 256 slots (two compaction rounds), at D = 256; D = 4,096 (several
+# passes a lane) and 16,384 (64 KB of f32 query, past the 48 KB default of
+# shared memory); on the warp plan (rows of at most 512 bytes), C = 300 at
+# pack_dim 112's width (ten warps a query, the last one part full), sift's
+# hop body (1,024 x 128 slots over 2^19 rows of 128: 256 MB of f32) and a
+# re-rank of 1,024 x 40 over 1,000,000 x 128
 GATHER_SHAPES = [(1024, 128, 60000, 896), (1024, 40, 31173, 768),
                  (100, 1, 500, 768), (37, 300, 2000, 112),
-                 (5, 21, 300, 4096), (3, 8, 50, 16384)]
+                 (5, 21, 300, 4096), (3, 8, 50, 16384),
+                 (1024, 128, 1 << 19, 128), (1024, 40, 1_000_000, 128),
+                 (37, 300, 2000, 256)]
 
 
 @pytest.mark.parametrize("metric", ["cosine", "euclidean", "dot"])
@@ -852,6 +857,24 @@ def test_gather_kernel_matches_plain_version(b, c, n, d, dtype, metric,
         else:
             err, bar = (g - w).abs(), t + 1e-6
         assert bool((err <= bar).all()), float((err - bar).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,n,d", [(1024, 128, 1 << 19, 128),
+                                     (1024, 128, 60000, 896)])
+def test_gather_kernel_gives_the_same_bits_twice(b, c, n, d, dtype,
+                                                 cuda_device):
+    """Two calls on the same operands, on the warp plan (sift's hop body)
+    and the block plan (fmnist's), write the same bits: no sum depends on
+    the order in which warps or blocks run."""
+    queries, rows, vectors, v_sq, valid = _gather_inputs(
+        b, c, n, d, dtype, cuda_device, seed=5)
+    q_sq = (queries * queries).sum(1, keepdim=True)
+    first, second = (gather.hop_gather_score(queries, rows, vectors, v_sq,
+                                             "euclidean", valid, q_sq)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 def test_gather_kernel_allocates_no_candidate_tensor(cuda_device):
